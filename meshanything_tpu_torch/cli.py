@@ -5,8 +5,13 @@
         --random_weights
 
 writes ``<out_dir>/<time>/<uid>_gen.obj``. ``--device cuda`` (the default)
-needs a card and never falls back to the CPU. Flags of slices not ported
-yet raise.
+needs a card and never falls back to the CPU.
+
+The fast tier: ``--attn pallas_int8|pallas_int4`` (quantized KV cache),
+``--lookahead N|adaptive`` (Jacobi windows), ``--wq`` (int8 W8A8 layer
+matrices), and ``--fast``, which means ``--wq --attn pallas_int8
+--lookahead 8`` with an explicit ``--attn``/``--lookahead`` winning over
+the preset. Flags of slices not ported yet raise.
 """
 from __future__ import annotations
 
@@ -32,14 +37,36 @@ def get_args(argv=None):
     parser.add_argument("--bucket", default=512, type=int,
                         help="the KV cache length is padded to a multiple of this")
     parser.add_argument("--device", default="cuda", type=str)
+    parser.add_argument("--lookahead", default=0,
+                        type=lambda v: v if v == "adaptive" else int(v),
+                        help="Jacobi lookahead window; 'adaptive' switches between 8 and 16 "
+                             "on measured acceptance")
+    parser.add_argument("--attn", default="auto", type=str,
+                        help="decode cache tier: auto (= pallas), pallas, pallas_int8, "
+                             "pallas_int4")
+    parser.add_argument("--wq", default=False, action="store_true",
+                        help="int8 W8A8 decode-loop weights (prefill and lm_head stay)")
+    parser.add_argument("--fast", default=False, action="store_true",
+                        help="preset: --wq --attn pallas_int8 --lookahead 8; an explicit "
+                             "--attn/--lookahead wins over the preset")
     # flags of later slices: accepted so that they fail with a clear message
     parser.add_argument("--pretrained_weights", default=None, type=str)
     parser.add_argument("--mc", default=False, action="store_true")
-    parser.add_argument("--lookahead", default="0", type=str)
-    parser.add_argument("--wq", default=False, action="store_true")
-    parser.add_argument("--attn", default="auto", type=str)
     parser.add_argument("--complete_from", default=None, type=str)
-    return parser.parse_args(argv)
+    return apply_fast_preset(parser.parse_args(argv))
+
+
+def apply_fast_preset(args):
+    """Resolve --fast into its knobs (JAX cli.py:85-98): int8 cache
+    unless --attn was given, lookahead 8 unless --lookahead was given,
+    and int8 weights."""
+    if args.fast:
+        if args.attn == "auto":
+            args.attn = "pallas_int8"
+        if args.lookahead == 0:
+            args.lookahead = 8
+        args.wq = True
+    return args
 
 
 def check_ported(args) -> None:
@@ -47,16 +74,15 @@ def check_ported(args) -> None:
     later = {
         "--mc": args.mc,
         "--pretrained_weights": args.pretrained_weights is not None,
-        "--lookahead": args.lookahead not in ("0", ""),
-        "--wq": args.wq,
-        "--attn": args.attn not in ("auto", "pallas"),
+        "--attn": args.attn not in ("auto", "pallas", "pallas_int8", "pallas_int4"),
         "--complete_from": args.complete_from is not None,
     }
     named = [flag for flag, given in later.items() if given]
     if named:
         raise NotImplementedError(
             f"{', '.join(named)}: not ported yet to meshanything_tpu_torch "
-            "(this slice runs the exact greedy/sampled decode through the CUDA kernel)")
+            "(it runs the exact and the fast tiers of the decode: --attn "
+            "pallas|pallas_int8|pallas_int4, --lookahead, --wq, --fast)")
     if not args.random_weights:
         raise NotImplementedError(
             "checkpoint loading is not ported yet: pass --random_weights")
@@ -114,7 +140,8 @@ def main(argv=None):
                           num_points=cfg.perceiver.num_points, seed=args.seed)
     print(f"dataset total data samples: {len(samples)}")
 
-    pipe = InferencePipeline(model, cfg, batch_size=args.batchsize_per_gpu, bucket=args.bucket)
+    pipe = InferencePipeline(model, cfg, batch_size=args.batchsize_per_gpu, bucket=args.bucket,
+                             attn=args.attn, lookahead=args.lookahead, wq=args.wq)
     begin = time.time()
     print("Generation Start!!!")
     results = pipe.run(samples, out_dir, sampling=args.sampling, seed=args.seed)

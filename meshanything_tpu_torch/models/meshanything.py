@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from meshanything_tpu_torch.config import MeshAnythingConfig
+from meshanything_tpu_torch.models import lookahead as la_mod
 from meshanything_tpu_torch.models import nrd as nrd_mod
 from meshanything_tpu_torch.models import perceiver as per_mod
 from meshanything_tpu_torch.models import shape_opt as opt_mod
@@ -79,10 +80,18 @@ def detokenize(m: MeshAnything, cfg: MeshAnythingConfig, raw_tokens: torch.Tenso
 
 def generate(m: MeshAnything, cfg: MeshAnythingConfig, pc_normal: torch.Tensor, *,
              sampling: bool = False, generator: Optional[torch.Generator] = None,
-             bucket: int = 512) -> GenerateOutput:
+             bucket: int = 512, attn: str = "pallas", lookahead: int = 0,
+             wq: bool = False) -> GenerateOutput:
     """Full inference pass (meshanything.py:134-176) on (B, N, 6)
-    normalized points+normals."""
+    normalized points+normals. ``lookahead`` > 0 decodes with Jacobi
+    windows of that width (``models/lookahead.py``; with ``sampling``,
+    speculative sampling); ``attn`` picks the cache tier and ``wq`` the
+    int8 layer matrices (``models/shape_opt.py``)."""
     point_feature, cond = encode(m, cfg, pc_normal)
-    raw = opt_mod.generate(m.opt, cfg.opt, cond, max_new_tokens=cfg.generate_length,
-                           sampling=sampling, generator=generator, bucket=bucket)
+    kw = dict(max_new_tokens=cfg.generate_length, sampling=sampling, generator=generator,
+              bucket=bucket, attn=attn, wq=wq)
+    if lookahead > 0:
+        raw = la_mod.generate_lookahead(m.opt, cfg.opt, cond, window=lookahead, **kw)
+    else:
+        raw = opt_mod.generate(m.opt, cfg.opt, cond, **kw)
     return GenerateOutput(detokenize(m, cfg, raw, point_feature), raw)

@@ -2,6 +2,11 @@
 postprocessing (the port of ``meshanything_tpu/runtime/pipeline.py`` and
 of the three phases of ``runtime/phases.py``: encode, decode, detok).
 
+The decode phase runs the single-token loop (``models/shape_opt.py``) or,
+with ``lookahead`` (a window width, or "adaptive" for the 8/16 window
+controller of ``models/lookahead.py``), the Jacobi window loop; ``attn``
+picks the cache tier and ``wq`` the int8 layer matrices.
+
 A failure anywhere, a kernel fault included, ends the run: nothing here
 turns an exception into a result record.
 """
@@ -22,8 +27,13 @@ from meshanything_tpu_torch.geometry import (
     postprocess_faces,
     sample_surface_with_normals,
 )
+from meshanything_tpu_torch.models import lookahead as la_mod
 from meshanything_tpu_torch.models import meshanything as ma
 from meshanything_tpu_torch.models import shape_opt as opt_mod
+from meshanything_tpu_torch.ops.wquant import quantize_opt_layers
+
+ADAPTIVE_WINDOWS = (8, 16)     # runtime/phases.py's adaptive_windows
+ADAPTIVE_CHECK_ITERS = 64
 
 
 @dataclasses.dataclass
@@ -64,12 +74,53 @@ class InferencePipeline:
     ``batch_size`` with copies of their last sample."""
 
     def __init__(self, model: ma.MeshAnything, cfg: MeshAnythingConfig, *,
-                 batch_size: int = 1, bucket: int = 512):
+                 batch_size: int = 1, bucket: int = 512, attn: str = "auto",
+                 lookahead: "int | str" = 0, wq: bool = False):
+        if not (lookahead == "adaptive" or (isinstance(lookahead, int) and lookahead >= 0)):
+            raise ValueError(f"lookahead must be a window width or 'adaptive', not {lookahead!r}")
         self.model = model
         self.cfg = cfg
         self.batch_size = batch_size
         self.bucket = bucket
+        self.attn = opt_mod.resolve_attn(attn)
+        self.lookahead = lookahead
+        self.wq = wq
         self.device = next(model.parameters()).device
+
+    def _decode_lookahead(self, cond: torch.Tensor, sampling: bool,
+                          generator: torch.Generator | None) -> dict:
+        """The window loop: fixed width, or the adaptive controller over
+        ADAPTIVE_WINDOWS on one state sized for the larger."""
+        cfg, m = self.cfg, self.model
+        gl = cfg.generate_length
+        adaptive = self.lookahead == "adaptive"
+        small, big = ADAPTIVE_WINDOWS if adaptive else (self.lookahead,) * 2
+        state = la_mod.init_lookahead_state(
+            m.opt, cfg.opt, cond, max_new_tokens=gl, window=small, bucket=self.bucket,
+            attn=self.attn, sampling=sampling, generator=generator, buf_window=big)
+        wq_layers = quantize_opt_layers(m.opt.layers) if self.wq else None
+
+        def segment(st, until=None, _window=None):
+            return la_mod.lookahead_segment(m.opt, cfg.opt, st, max_new_tokens=gl,
+                                            wq_layers=wq_layers, until_iters=until,
+                                            sampling=sampling)
+
+        trace = []
+        if adaptive:
+            state = la_mod.run_adaptive_controller(
+                state, segment, windows=ADAPTIVE_WINDOWS, check_iters=ADAPTIVE_CHECK_ITERS,
+                max_new_tokens=gl, trace=trace)
+        else:
+            state = segment(state)
+        steps = state.steps.clamp_max(gl)
+        b = steps.shape[0]
+        out = {"tokens": state.tokens[:, :gl], "decode_steps": int(steps.max()) - 1,
+               "window_forwards": state.iters,
+               # tokens past the first, per row and window forward
+               "mean_accept": float(steps.sum() - b) / max(state.iters * b, 1)}
+        if adaptive:
+            out["window_trace"] = trace
+        return out
 
     @torch.no_grad()
     def generate(self, pc_normal: torch.Tensor, *, sampling: bool = False,
@@ -84,19 +135,23 @@ class InferencePipeline:
         times["encode_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        kw = dict(sampling=sampling)
-        state = opt_mod.init_decode_state(m.opt, cfg.opt, cond, max_new_tokens=cfg.generate_length,
-                                          bucket=self.bucket, generator=generator, **kw)
-        state = opt_mod.decode_loop(m.opt, cfg.opt, state, max_new_tokens=cfg.generate_length, **kw)
+        if self.lookahead:
+            out = self._decode_lookahead(cond, sampling, generator)
+        else:
+            state = opt_mod.init_decode_state(
+                m.opt, cfg.opt, cond, max_new_tokens=cfg.generate_length, bucket=self.bucket,
+                generator=generator, attn=self.attn, sampling=sampling)
+            state = opt_mod.decode_loop(m.opt, cfg.opt, state, max_new_tokens=cfg.generate_length,
+                                        wq=self.wq, sampling=sampling)
+            out = {"tokens": state.tokens, "decode_steps": state.step - 1}
         _fence(self.device)
         times["decode_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        coords = ma.detokenize(m, cfg, state.tokens, point_feature)
+        coords = ma.detokenize(m, cfg, out["tokens"], point_feature)
         _fence(self.device)
         times["detok_s"] = time.perf_counter() - t0
-        return {"coords": coords, "tokens": state.tokens, "decode_steps": state.step - 1,
-                **times}
+        return {"coords": coords, **out, **times}
 
     def run(self, samples: Iterable[Sample], out_dir: str, *, sampling: bool = False,
             seed: int = 0) -> List[dict]:
@@ -129,6 +184,9 @@ class InferencePipeline:
                     "decode_s": out["decode_s"],
                     "detok_s": out["detok_s"],
                 }
+                for key in ("window_forwards", "mean_accept", "window_trace"):
+                    if key in out:
+                        rec[key] = out[key]
                 path = os.path.join(out_dir, f"{s.uid}_gen.obj")
                 rec["faces_final"] = len(postprocess_faces(coords[i], path).faces)
                 rec["obj_path"] = path

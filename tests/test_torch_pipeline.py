@@ -141,13 +141,63 @@ def test_cli_writes_the_jax_pipelines_obj_bytes(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--mc"], ["--pretrained_weights", "w.pth"],
-                                   ["--lookahead", "8"], ["--wq"], ["--attn", "pallas_int8"],
+                                   ["--attn", "xla"], ["--attn", "megakernel"],
+                                   ["--fast", "--attn", "xla"],
                                    ["--complete_from", "p.obj"], []])
 def test_cli_refuses_what_is_not_ported(flags):
     args = cli.get_args(["--input_path", "x.npy", "--input_type", "pc_normal", *flags]
                         + ([] if flags == [] else ["--random_weights"]))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.check_ported(args)
+
+
+@pytest.mark.parametrize("flags,attn,lookahead,wq", [
+    (["--fast"], "pallas_int8", 8, True),
+    (["--fast", "--attn", "pallas_int4"], "pallas_int4", 8, True),
+    (["--fast", "--lookahead", "adaptive"], "pallas_int8", "adaptive", True),
+    (["--attn", "pallas_int4", "--lookahead", "4"], "pallas_int4", 4, False),
+])
+def test_cli_fast_preset_resolves_like_jax(flags, attn, lookahead, wq):
+    """--fast means --wq --attn pallas_int8 --lookahead 8, and an explicit
+    --attn/--lookahead wins over it (JAX cli.py::apply_fast_preset)."""
+    from meshanything_tpu.cli import get_args as jax_get_args
+
+    args = cli.get_args(["--input_path", "x.npy", "--random_weights", *flags])
+    cli.check_ported(args)
+    assert (args.attn, args.lookahead, args.wq) == (attn, lookahead, wq)
+    jargs = jax_get_args(["--input_path", "x.npy", "--random_weights", *flags])
+    assert (jargs.attn, jargs.lookahead, jargs.wq) == (attn, lookahead, wq)
+
+
+@pytest.mark.parametrize("flags,jax_kw", [
+    (["--fast"], dict(attn="pallas_int8", lookahead=8, wq=True)),
+    (["--attn", "pallas_int4", "--lookahead", "4"], dict(attn="pallas_int4", lookahead=4)),
+])
+def test_cli_fast_tier_writes_the_jax_pipelines_obj_bytes(tmp_path, monkeypatch, flags, jax_kw):
+    """The fast tier through the port's CLI against the JAX
+    InferencePipeline with the same attn/lookahead/wq, on the same bridged
+    weights and input file."""
+    jcfg = jax_small_config(n_max_triangles=4)
+    cfg = small_test_config(n_max_triangles=4)
+    params = jma.init_meshanything_params(jax.random.PRNGKey(42), jcfg)
+    tree = jax.tree_util.tree_map(np.array, params)
+    npy = tmp_path / "mouse.npy"
+    np.save(npy, _point_cloud(np.random.default_rng(8), 200))
+
+    jpipe = JaxPipeline(params, jcfg, batch_size=1, bucket=16, **jax_kw)
+    jres = jpipe.run(jax_load_inputs("pc_normal", [str(npy)], num_points=64, seed=0),
+                     str(tmp_path / "jax"), seed=0)
+
+    monkeypatch.setattr(cli, "build_config", lambda args: cfg)
+    monkeypatch.setattr(cli, "load_params",
+                        lambda args, cfg_, device: params_from_jax_numpy(tree, cfg_, device=device))
+    res = cli.main(["--input_path", str(npy), "--input_type", "pc_normal", "--out_dir",
+                    str(tmp_path / "port"), "--device", "cpu", "--random_weights",
+                    "--dtype", "float32", "--bucket", "16", "--seed", "0", *flags])
+    assert len(res) == 1 and res[0]["faces_generated"] == jres[0]["faces_generated"] > 0
+    assert 0 < res[0]["window_forwards"] < cfg.generate_length
+    assert res[0]["mean_accept"] > 0
+    assert open(res[0]["obj_path"], "rb").read() == open(jres[0]["obj_path"], "rb").read()
 
 
 def test_cli_cuda_device_never_falls_back(monkeypatch):
