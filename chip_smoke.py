@@ -6,8 +6,9 @@
 Phases, each printing JSON lines; any failure exits non-zero:
 
   1. device: a CUDA card is required (no CPU fallback);
-  2. build: K1 (csrc/decode_attention.cu) and K2-K4
-     (csrc/decode_attention_fast.cu) are compiled with nvcc, both at once;
+  2. build: K1 (csrc/decode_attention.cu), K2-K4
+     (csrc/decode_attention_fast.cu) and K5 (csrc/megakernel.cu) are
+     compiled with nvcc, all three at once;
   3. K1 against its plain PyTorch version at the production shapes
      (L=24, H=16, D=64, S=7680, layer 23; B 1 and 16; cur_len 1, 257,
      4000, 7459; f32 and bf16), with a NaN tail past cur_len and NaN in
@@ -20,20 +21,36 @@ Phases, each printing JSON lines; any failure exits non-zero:
      B 1 and 16, W 4, 8 and 16, base 1, 256, 4000 and 7450 (row b gets
      base - b), random window rows, the same poisoning past base[b];
   6. K1-K4 and their plain versions timed with CUDA events at cur_len
-     7459 / base 7450 (device time of CUDA-graph replays; K1 also eager);
-  7. the main path: the CLI at the full 350M width on seeded random bf16
+     7459 / base 7450 (device time of CUDA-graph replays; K1 also eager),
+     with the one PyTorch call that computes the same function where
+     there is one (scaled_dot_product_attention for K1 and bf16 K4);
+  7. K5, the whole decode step, against its plain version at the full
+     350M width (L=24, D=1024, F=4096, S=7680; f32 and bf16 caches) on
+     every compiled row group: B 1, 2 and 16 at cur_len 1, 257, 4000 and
+     7459, B=4 (a partly filled group of 16) at 4000 and B=24 (two groups
+     of 16, the second partly filled) at 7459: x_out and the written K/V
+     rows within tolerance, NaN past cur_len in every layer never reaching
+     the output, rows below write_pos unchanged; then K5, its plain
+     version and the eager 24-layer K1 layer loop of the exact tier timed
+     for the same step at B 1 and 16, cur_len 7459 and 300;
+  8. the main path: the CLI at the full 350M width on seeded random bf16
      weights: the exact tier twice (K1; the B=2 run cut to 400 faces),
      then F1 --fast (K4 int8 + W8A8),
      F2 --attn pallas_int4 --lookahead adaptive (K4 int4), F3 --lookahead
      8 (K4 bf16), F4 --attn pallas_int8 (K2) and F5 --attn pallas_int4
-     --wq (K3); the OBJs must parse and each run must launch exactly its
-     kernel, 24 times per decode step or window forward;
-  8. agreement on a small input: the small config on the card (through
+     --wq (K3), and InferencePipeline(attn="megakernel") on the same two
+     inputs (M1 B=1, M2 B=2 cut to 400 faces; K5); the OBJs must parse
+     and each run must launch exactly its kernel, 24 times per decode step
+     or window forward (K5: once a decode step), and no other kernel;
+  9. agreement on a small input: the small config on the card (through
      the kernels) against the same weights on the CPU (plain versions),
-     exact tier and fast tiers, in f32: tokens and coordinates identical.
+     exact tier, fast tiers and megakernel, in f32: tokens and coordinates
+     identical.
 
-Before the last line it prints {"kernels": [...]} and the card's name and
-power limit; the last line is {"ok": true, "device": {...}}.
+Before the last line it prints {"kernels": [...]} (every kernel with its
+time, its plain version's, its byte or operation bound and the library
+call's time where there is one) and the card's name and power limit; the
+last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -51,7 +68,32 @@ CUR_LENS = (7459, 4000, 257, 1)   # descending: each case poisons the rows past 
 BASES = (7450, 4000, 256, 1)
 WINDOWS = (4, 8, 16)
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-KERNEL_LIBS = ("decode_attention", "decode_attention_fast")
+KERNEL_LIBS = ("decode_attention", "decode_attention_fast", "megakernel")
+FFN = 4096                        # the 350M model's fc1 width
+K5_TIME_LENS = (7459, 300)        # a long and a short context
+# (batch, cur_lens) of the K5 checks: B 1 and 2 (the M1 and M2 runs) and 16
+# are the kernel's three instances at full depth of cases; B=4 leaves 12 rows
+# of a 16-row group empty, B=24 loops over two groups
+K5_CHECKS = ((1, CUR_LENS), (2, CUR_LENS), (16, CUR_LENS), (4, (4000,)), (24, (7459,)))
+# K5 against its plain version over 24 layers: the two sum each product in
+# another order, so now and then a GEMV input rounds to the other bf16
+# neighbour (0.4% of it), and the layers carry such flips on until the two
+# differ like two bf16 runs of one model (0.02-0.05 on O(1) outputs on the
+# H100). The same step over one layer (layer 0) has few flips to carry
+# (at most 8e-4 in f32 at B=16); layer 0's written K/V rows have none and
+# are held to TOL.
+K5_TOL = {"float32": 6e-2, "bfloat16": 6e-2}
+K5_ONE_LAYER_TOL = {"float32": 2e-3, "bfloat16": 1e-2}
+HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA's data sheet
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}  # dense
+
+
+def bound(moved_bytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the bytes over the
+    HBM rate or the operations over the peak rate of their type."""
+    by_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def emit(phase: str, **fields) -> None:
@@ -124,8 +166,9 @@ def _time_sweeps(torch, sweeps: dict, calls: int) -> dict:
     """ms a call of each sweep (``calls`` calls, one per layer): device
     time of the sweep captured in one CUDA graph and replayed between two
     CUDA events, so the host's enqueue cost is not in it, in the order
-    plain, kernel, kernel, plain; ``eager_ms`` is the sweep launched from
-    Python."""
+    plain, kernel, library, library, kernel, plain (``library``, the
+    PyTorch call computing the same function, where given); ``eager_ms``
+    is the sweep launched from Python."""
     graphs, eager = {}, {}
     for which, sweep in sweeps.items():
         side = torch.cuda.Stream()
@@ -138,17 +181,24 @@ def _time_sweeps(torch, sweeps: dict, calls: int) -> dict:
         with torch.cuda.graph(graphs[which]):
             sweep()
         eager[which] = _events_ms(torch, sweep, 4) / calls
-    runs = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        runs[which].append(_events_ms(torch, graphs[which].replay, 10) / calls)
-    return {"ms": sum(runs["kernel"]) / 2, "plain_ms": sum(runs["plain"]) / 2,
-            "kernel_runs_ms": runs["kernel"], "plain_runs_ms": runs["plain"],
-            "eager_ms": eager["kernel"], "plain_eager_ms": eager["plain"]}
+    runs = {which: [] for which in sweeps}
+    for which in ("plain", "kernel", "library", "library", "kernel", "plain"):
+        if which in sweeps:
+            runs[which].append(_events_ms(torch, graphs[which].replay, 10) / calls)
+    out = {"ms": sum(runs["kernel"]) / 2, "plain_ms": sum(runs["plain"]) / 2,
+           "kernel_runs_ms": runs["kernel"], "plain_runs_ms": runs["plain"],
+           "eager_ms": eager["kernel"], "plain_eager_ms": eager["plain"]}
+    if "library" in sweeps:
+        out.update(library_ms=sum(runs["library"]) / 2, library_runs_ms=runs["library"])
+    return out
 
 
 def time_k1(torch, da, card: str) -> dict:
     """Phase 6 for K1: ms per call at cur_len 7459, cycling the 24 layers
-    so that each call streams its rows from HBM as in the decode loop."""
+    so that each call streams its rows from HBM as in the decode loop;
+    the library call is scaled_dot_product_attention over the live rows
+    (heads as a strided view of the cache)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(1)
     cur = 7459
     times = {}
@@ -156,15 +206,21 @@ def time_k1(torch, da, card: str) -> dict:
         kv = torch.randn((2, L, batch, S, H * D), generator=gen, device="cuda",
                          dtype=torch.bfloat16)
         q = torch.randn((batch, H, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+        heads = [tuple(kv[p, i, :, :cur].view(batch, cur, H, D).transpose(1, 2) for p in (0, 1))
+                 for i in range(L)]
         sweeps = {which: (lambda fn=fn: [fn(q, kv, i, cur) for i in range(L)])
                   for which, fn in (("kernel", da.decode_attention),
                                     ("plain", da.decode_attention_reference))}
+        sweeps["library"] = lambda: [sdpa(q[:, :, None], k, v) for k, v in heads]
         t = _time_sweeps(torch, sweeps, L)
         live_bytes = 2 * batch * cur * H * D * 2
+        # each input read once (q, live rows), the output written once; 4 flops an element
+        t["bound_ms"], t["bound_by"] = bound(live_bytes + 2 * q.numel() * 2,
+                                             4 * batch * cur * H * D, "bfloat16")
         times[batch] = t
         emit("k1_time", batch=batch, cur_len=cur, dtype="bfloat16", **t,
              live_kv_bytes=live_bytes, kernel_gb_per_s=live_bytes / t["ms"] / 1e6, card=card)
-        del kv, q
+        del kv, q, heads, sweeps
         torch.cuda.empty_cache()
     return times
 
@@ -308,7 +364,11 @@ def check_k4(torch, da) -> float:
 def time_fast(torch, da, card: str) -> dict:
     """Phase 6 for K2, K3 and K4 (W=8): ms per call at cur_len 7459 /
     base 7450, cycling the 24 layers; GB/s of the live packed bytes (codes
-    and scales, or bf16 values)."""
+    and scales, or bf16 values). bf16 K4's library call is
+    scaled_dot_product_attention over cache rows [0, base + W) with the
+    window's causal mask (the window rows in the cache, as the JAX
+    package's XLA tier puts them)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(4)
     cur, base0, w = 7459, 7450, 8
     times = {}
@@ -345,15 +405,198 @@ def time_fast(torch, da, card: str) -> dict:
                 "plain": lambda: [da.decode_attention_mq_reference(
                     qw, *mq_args, i, base, win[0], win[1], *win_s, n_rows=base0)
                     for i in range(L)]}))
+            if kind == "bfloat16":
+                n = base0 + w
+                heads = [tuple(kv[p, i, :, :n].view(batch, n, H, D).transpose(1, 2)
+                               for p in (0, 1)) for i in range(L)]
+                causal = (torch.arange(n, device="cuda")[None, :]
+                          <= base0 + torch.arange(w, device="cuda")[:, None])
+                qh = qw.transpose(1, 2)
+                cases[-1][2]["library"] = lambda: [sdpa(qh, k, v, attn_mask=causal)
+                                                   for k, v in heads]
             for name, rows, sweeps in cases:
                 t = _time_sweeps(torch, sweeps, L)
                 live_bytes = 2 * batch * rows * row_bytes
+                queries = w if name.startswith("k4") else 1
+                # the live rows (and a K4 window's rows) read once, q read and out written once
+                moved = live_bytes + 2 * batch * (queries if queries > 1 else 0) * row_bytes
+                moved += 2 * batch * queries * H * D * 2
+                # query w of a window sees base + w + 1 rows; 4 operations a row element
+                seen = rows if queries == 1 else queries * rows + queries * (queries + 1) // 2
+                t["bound_ms"], t["bound_by"] = bound(
+                    moved, 4 * batch * seen * H * D, "bfloat16" if kind == "bfloat16" else "int8")
                 times.setdefault(name, {})[batch] = t
                 emit("fast_time", kernel=name, batch=batch, rows=rows,
                      window=w if name.startswith("k4") else 1, query_dtype="bfloat16", **t,
                      live_bytes=live_bytes, kernel_gb_per_s=live_bytes / t["ms"] / 1e6, card=card)
             del kv, scales, win, cases, mq_args
+            heads = None
             torch.cuda.empty_cache()
+    return times
+
+
+def _random_packed(torch, mk, gen):
+    """K5's packed layers at the full width with seeded random values:
+    bf16 matrices N(0, 0.02), biases N(0, 0.1), LayerNorm scales 1 + N(0, 0.1)."""
+    d = H * D
+
+    def mat(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.02).bfloat16()
+
+    def vec(width, base=0.0):
+        return torch.randn((L, width), generator=gen, device="cuda") * 0.1 + base
+
+    return mk.MegakernelLayers(
+        qkv_w=mat(L, 3 * d, d), out_w=mat(L, d, d), fc1_w=mat(L, FFN, d), fc2_w=mat(L, d, FFN),
+        qkv_b=vec(3 * d), out_b=vec(d), fc1_b=vec(FFN), fc2_b=vec(d), ln_attn_w=vec(d, 1.0),
+        ln_attn_b=vec(d), ln_ffn_w=vec(d, 1.0), ln_ffn_b=vec(d))
+
+
+def _fill_slices(torch, kv, seed: int, rows=None):
+    """Fill each (plane, layer) slice of ``kv`` from its own seeded stream;
+    with ``rows``, regenerate instead and return whether rows [0, rows) of
+    every slice still hold those values."""
+    gen = torch.Generator(device="cuda")
+    same = True
+    for plane in range(2):
+        for layer in range(kv.shape[1]):
+            gen.manual_seed(seed * 1000 + plane * 100 + layer)
+            fresh = torch.randn(kv.shape[2:], generator=gen, device="cuda", dtype=kv.dtype)
+            if rows is None:
+                kv[plane, layer] = fresh
+            else:
+                same = same and torch.equal(kv[plane, layer, :, :rows], fresh[:, :rows])
+    return same
+
+
+def _one_layer_case(torch, mk, packed, x, kv, wp: int, cur: int, tol: float) -> dict:
+    """K5 and its plain version over layer 0 alone, on a copy of kv's
+    layer 0."""
+    one = mk.MegakernelLayers(*(t[:1] for t in packed.tensors()))
+    kv1 = kv[:, :1].clone()
+    out = mk.decode_step_megakernel(x, one, kv1, wp, cur, num_heads=H)
+    rows = kv1[:, :, :, wp].clone()
+    plain = mk.decode_step_megakernel_reference(x, one, kv1, wp, cur, num_heads=H)
+    err, within = _close(out, plain, tol)
+    row_err, rows_within = _close(rows, kv1[:, :, :, wp], tol)
+    return {"one_layer_max_abs_err": err, "one_layer_kv_row_max_abs_err": row_err,
+            "one_layer_ok": within and rows_within}
+
+
+def check_k5(torch, mk) -> float:
+    """Phase 7 (checks); returns the largest error of x_out against the
+    plain version over the 24 layers."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    packed = _random_packed(torch, mk, gen)
+    worst, failures = 0.0, []
+    for batch, cur_lens in K5_CHECKS:
+        for name in ("float32", "bfloat16"):
+            dtype = getattr(torch, name)
+            tol = K5_TOL[name]
+            seed = 10 * batch + (name == "bfloat16")
+            kv = torch.empty((2, L, batch, S, H * D), dtype=dtype, device="cuda")
+            _fill_slices(torch, kv, seed)
+            x = torch.randn((batch, H * D), generator=gen, device="cuda").to(dtype)
+            for cur in cur_lens:
+                wp = cur - 1
+                out = mk.decode_step_megakernel(x, packed, kv, wp, cur, num_heads=H)
+                kv[:, :, :, cur:] = float("nan")
+                poisoned = mk.decode_step_megakernel(x, packed, kv, wp, cur, num_heads=H)
+                rows = kv[:, :, :, wp].clone()
+                plain = mk.decode_step_megakernel_reference(x, packed, kv, wp, cur, num_heads=H)
+                torch.cuda.synchronize()
+                err, within = _close(out, plain, tol)
+                row_err, rows_within = _close(rows, kv[:, :, :, wp], tol)
+                row0_err, row0_within = _close(rows[:, 0], kv[:, 0, :, wp], TOL[name])
+                finite = bool(torch.isfinite(out).all())
+                tail_ok = bool(torch.equal(out, poisoned))
+                unchanged = _fill_slices(torch, kv, seed, rows=wp)
+                one = _one_layer_case(torch, mk, packed, x, kv, wp, cur,
+                                      K5_ONE_LAYER_TOL[name])
+                ok = (within and rows_within and row0_within and finite and tail_ok
+                      and unchanged and one["one_layer_ok"])
+                worst = max(worst, err)
+                emit("k5_check", batch=batch, row_group=mk.row_group(batch), dtype=name,
+                     cur_len=cur, max_abs_err=err,
+                     kv_row_max_abs_err=row_err, atol=tol, rtol=tol,
+                     layer0_kv_row_max_abs_err=row0_err,
+                     one_layer_tol=K5_ONE_LAYER_TOL[name], **one,
+                     finite=finite, nan_tail_unchanged=tail_ok,
+                     rows_below_write_pos_unchanged=unchanged,
+                     plane_stride_bytes=kv[0].numel() * kv.element_size(), ok=ok)
+                if not ok:
+                    failures.append((batch, name, cur))
+            del kv, x
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"K5 disagrees with its plain version: {failures}")
+    return worst
+
+
+def time_k5(torch, mk, da, card: str) -> dict:
+    """Phase 7 (times): one decode step's layer stack on seeded random bf16
+    layers and a bf16 cache, as K5, as its plain version, and as the
+    exact tier's eager loop of 24 layers (linear, K/V row write, K1,
+    after_attention, as ``shape_opt.decode_step`` runs them), each timed
+    with CUDA events around launches from Python, in the order plain, K5,
+    K1 loop, K1 loop, K5, plain. Returns {(batch, cur_len): times}."""
+    from meshanything_tpu_torch.config import ShapeOPTConfig
+    from meshanything_tpu_torch.models.layers import lin
+    from meshanything_tpu_torch.models.shape_opt import OPTLayer
+
+    torch.manual_seed(6)
+    cfg = ShapeOPTConfig()
+    layers = torch.nn.ModuleList(OPTLayer(cfg, device="cuda", dtype=torch.bfloat16)
+                                 for _ in range(L))
+    packed = mk.pack_megakernel_layers(layers)
+    weight_bytes = sum(t.numel() * t.element_size() for t in packed.tensors())
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    times = {}
+    for batch in (1, 16):
+        kv = torch.randn((2, L, batch, S, H * D), generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        x = torch.randn((batch, H * D), generator=gen, device="cuda").bfloat16()
+        for cur in K5_TIME_LENS:
+            wp = cur - 1
+
+            def k1_loop(x=x, wp=wp, cur=cur):
+                h = x
+                for i, layer in enumerate(layers):
+                    q, k, v = lin(h, layer.qkv).chunk(3, dim=-1)
+                    kv[0, i, :, wp] = k
+                    kv[1, i, :, wp] = v
+                    o = da.decode_attention(q.reshape(batch, H, D).contiguous(), kv, i, cur)
+                    h = layer.after_attention(h, o.reshape(batch, H * D))
+                return h
+
+            runs = {
+                "kernel": lambda: mk.decode_step_megakernel(x, packed, kv, wp, cur, num_heads=H),
+                "plain": lambda: mk.decode_step_megakernel_reference(x, packed, kv, wp, cur,
+                                                                     num_heads=H),
+                "k1_loop": k1_loop}
+            iters = {"kernel": 20, "plain": 3, "k1_loop": 10}
+            for which, run in runs.items():   # warm-up
+                run()
+            torch.cuda.synchronize()
+            got = {which: [] for which in runs}
+            for which in ("plain", "kernel", "k1_loop", "k1_loop", "kernel", "plain"):
+                got[which].append(_events_ms(torch, runs[which], iters[which]))
+            kv_bytes = 2 * L * batch * cur * H * D * 2          # live rows read
+            moved = weight_bytes + kv_bytes + 2 * L * batch * H * D * 2 + 2 * x.numel() * 2
+            ops = 2 * batch * sum(packed.tensors()[i].numel() for i in range(4))
+            ops += 4 * L * batch * cur * H * D
+            t = {"ms": sum(got["kernel"]) / 2, "plain_ms": sum(got["plain"]) / 2,
+                 "k1_loop_ms": sum(got["k1_loop"]) / 2, "kernel_runs_ms": got["kernel"],
+                 "plain_runs_ms": got["plain"], "k1_loop_runs_ms": got["k1_loop"]}
+            t["bound_ms"], t["bound_by"] = bound(moved, ops, "bfloat16")
+            times[(batch, cur)] = t
+            emit("k5_time", batch=batch, cur_len=cur, dtype="bfloat16", **t,
+                 weight_bytes=weight_bytes, live_kv_bytes=kv_bytes,
+                 kernel_gb_per_s=moved / t["ms"] / 1e6, card=card)
+        del kv, x
+        torch.cuda.empty_cache()
+    del layers, packed
+    torch.cuda.empty_cache()
     return times
 
 
@@ -386,18 +629,36 @@ def write_inputs(tmp: str) -> tuple[str, str]:
     return npy, mesh_dir
 
 
-def run_main_path(torch, da, cli, load_obj, name: str, argv: list, expect: int, kernel: str,
-                  max_faces: int = 800) -> dict:
-    """Phase 7: one CLI run. Every kernel's count is set to 0 just before
-    it and read just after: ``kernel`` must have launched 24 times per
-    decode step (K1-K3) or per window forward (K4), and no other kernel
-    at all."""
-    wrappers = {"k1": da.decode_attention, "k2": da.decode_attention_int8,
-                "k3": da.decode_attention_int4, "k4": da.decode_attention_mq}
+def pipeline_run(torch, input_type: str, paths: list, batch_size: int, out_dir: str,
+                 **cfg_kw):
+    """InferencePipeline(attn="megakernel") as a user calls it, on the
+    full 350M config with seeded random bf16 weights (seed 0, as the
+    CLI's --random_weights) -> a callable returning its result records."""
+    def run():
+        from meshanything_tpu_torch.config import MeshAnythingConfig
+        from meshanything_tpu_torch.runtime.checkpoint import init_random_params
+        from meshanything_tpu_torch.runtime.pipeline import InferencePipeline, load_inputs
+
+        cfg = MeshAnythingConfig(dtype="bfloat16", **cfg_kw)
+        model = init_random_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   cfg.activation_dtype)
+        samples = load_inputs(input_type, paths, num_points=cfg.perceiver.num_points, seed=0)
+        pipe = InferencePipeline(model, cfg, batch_size=batch_size, attn="megakernel")
+        return pipe.run(samples, out_dir, seed=0)
+    return run
+
+
+def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, kernel: str,
+                  max_faces: int = 800, argv: list = ()) -> dict:
+    """Phase 8: one run of the main path (``run``: the CLI with ``argv``,
+    or the pipeline). Every kernel's count is set to 0 just before it and
+    read just after: ``kernel`` must have launched 24 times per decode
+    step (K1-K3) or per window forward (K4), or once per decode step
+    (K5), and no other kernel at all."""
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    results = cli.main(argv)
+    results = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
@@ -406,7 +667,8 @@ def run_main_path(torch, da, cli, load_obj, name: str, argv: list, expect: int, 
     batches = {r["batch"]: r for r in results}
     steps = sum(r["decode_steps"] for r in batches.values())
     units = (sum(r["window_forwards"] for r in batches.values()) if kernel == "k4" else steps)
-    expected = {k: (L * units if k == kernel else 0) for k in wrappers}
+    per_unit = 1 if kernel == "k5" else L
+    expected = {k: (per_unit * units if k == kernel else 0) for k in wrappers}
     if launches != expected or units == 0:
         raise AssertionError(f"{name}: launches {launches}, expected {expected}")
     for r in results:
@@ -443,13 +705,14 @@ AGREEMENT_CASES = (
     ("lookahead4_int8", {"lookahead": 4, "attn": "pallas_int8"}),
     ("lookahead4_int4", {"lookahead": 4, "attn": "pallas_int4"}),
     ("wq", {"wq": True}),
+    ("megakernel", {"attn": "megakernel"}),
 )
 
 
 def small_input_agreement(torch) -> None:
-    """Phase 8: small config, seeded weights, f32: the card (K1-K4) and
+    """Phase 9: small config, seeded weights, f32: the card (K1-K5) and
     the CPU (plain versions) give the same tokens and coordinates, in the
-    exact tier and in each fast tier."""
+    exact tier, in each fast tier and in the megakernel tier."""
     import copy
 
     from meshanything_tpu_torch.config import small_test_config
@@ -488,9 +751,11 @@ def main() -> int:
     from meshanything_tpu_torch.geometry import load_obj
     from meshanything_tpu_torch.ops import _build
     from meshanything_tpu_torch.ops import decode_attention as da
+    from meshanything_tpu_torch.ops import megakernel as mk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)   # as the pipeline runs the model
     card = card_line()
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda)
@@ -503,6 +768,15 @@ def main() -> int:
 
     worst = {"k1": check_k1(torch, da), **check_k23(torch, da), "k4": check_k4(torch, da)}
     times = {"k1": time_k1(torch, da, card), **time_fast(torch, da, card)}
+    worst["k5"] = check_k5(torch, mk)
+    k5_times = time_k5(torch, mk, da, card)
+
+    wrappers = {"k1": da.decode_attention, "k2": da.decode_attention_int8,
+                "k3": da.decode_attention_int4, "k4": da.decode_attention_mq,
+                "k5": mk.decode_step_megakernel}
+
+    def cli_run(argv):
+        return lambda: cli.main(argv)
 
     with tempfile.TemporaryDirectory() as tmp:
         npy, mesh_dir = write_inputs(tmp)
@@ -512,24 +786,36 @@ def main() -> int:
         meshes = ["--input_type", "mesh", "--input_dir", mesh_dir, "--batchsize_per_gpu", "2",
                   *common]
         short = ["--n_max_triangles", "100"]
-        runs = [
-            run_main_path(torch, da, cli, load_obj, "exact_pc", pc, 1, "k1"),
+        cli_runs = [
+            ("exact_pc", pc, 1, "k1", 800),
             # depth cut (400 faces, 3601 steps) to keep the smoke near half its time limit
-            run_main_path(torch, da, cli, load_obj, "exact_meshes",
-                          ["--n_max_triangles", "400", *meshes], 2, "k1", max_faces=400),
-            run_main_path(torch, da, cli, load_obj, "F1", ["--fast", *pc], 1, "k4"),
-            run_main_path(torch, da, cli, load_obj, "F2",
-                          ["--attn", "pallas_int4", "--lookahead", "adaptive", *meshes], 2, "k4"),
-            run_main_path(torch, da, cli, load_obj, "F3", ["--lookahead", "8", *pc], 1, "k4"),
-            run_main_path(torch, da, cli, load_obj, "F4", ["--attn", "pallas_int8", *short, *pc],
-                          1, "k2", max_faces=100),
-            run_main_path(torch, da, cli, load_obj, "F5",
-                          ["--attn", "pallas_int4", "--wq", *short, *meshes], 2, "k3",
-                          max_faces=100),
+            ("exact_meshes", ["--n_max_triangles", "400", *meshes], 2, "k1", 400),
+            ("F1", ["--fast", *pc], 1, "k4", 800),
+            ("F2", ["--attn", "pallas_int4", "--lookahead", "adaptive", *meshes], 2, "k4", 800),
+            ("F3", ["--lookahead", "8", *pc], 1, "k4", 800),
+            ("F4", ["--attn", "pallas_int8", *short, *pc], 1, "k2", 100),
+            ("F5", ["--attn", "pallas_int4", "--wq", *short, *meshes], 2, "k3", 100),
+        ]
+        runs = [run_main_path(torch, wrappers, load_obj, name, cli_run(argv), expect, kernel,
+                              max_faces=faces, argv=argv)
+                for name, argv, expect, kernel, faces in cli_runs]
+        # the megakernel path has no CLI flag (nor in the JAX CLI): its entry is the pipeline
+        out = os.path.join(tmp, "out_megakernel")
+        mesh_paths = [os.path.join(mesh_dir, n) for n in sorted(os.listdir(mesh_dir))]
+        runs += [
+            run_main_path(torch, wrappers, load_obj, "M1",
+                          pipeline_run(torch, "pc_normal", [npy], 1, out), 1, "k5",
+                          argv=["InferencePipeline(attn='megakernel')", "pc_normal", "B=1"]),
+            # the same depth cut as exact_meshes
+            run_main_path(torch, wrappers, load_obj, "M2",
+                          pipeline_run(torch, "mesh", mesh_paths, 2, out, n_max_triangles=400),
+                          2, "k5", max_faces=400,
+                          argv=["InferencePipeline(attn='megakernel')", "mesh", "B=2",
+                                "n_max_triangles=400"]),
         ]
     small_input_agreement(torch)
 
-    launches = {k: sum(r["launches"][k] for r in runs) for k in ("k1", "k2", "k3", "k4")}
+    launches = {k: sum(r["launches"][k] for r in runs) for k in wrappers}
     src = "meshanything_tpu_torch/csrc/"
     tpu = "meshanything_tpu/ops/decode_attention.py:"
     rows = [("k1", "decode_attention", "decode_attention.cu", "567", times["k1"]),
@@ -540,16 +826,28 @@ def main() -> int:
     for key, name, source, line, t in rows:
         entry = {"name": name, "route": "cuda", "source": src + source, "replaces": tpu + line,
                  "launches": launches[key], "max_abs_err": worst[key],
-                 "ms": t[1]["ms"], "plain_ms": t[1]["plain_ms"],
-                 "ms_b16": t[16]["ms"], "plain_ms_b16": t[16]["plain_ms"]}
+                 "ms": t[1]["ms"], "plain_ms": t[1]["plain_ms"], "bound_ms": t[1]["bound_ms"],
+                 "bound_by": t[1]["bound_by"], "library_ms": t[1].get("library_ms"),
+                 "ms_b16": t[16]["ms"], "plain_ms_b16": t[16]["plain_ms"],
+                 "bound_ms_b16": t[16]["bound_ms"], "library_ms_b16": t[16].get("library_ms")}
         if key == "k4":
             entry["window"] = 8
             entry["cache"] = "int8"
             for kind in ("int4", "bfloat16"):
                 for b in (1, 16):
-                    entry[f"ms_{kind}_b{b}"] = times[f"k4_{kind}"][b]["ms"]
-                    entry[f"plain_ms_{kind}_b{b}"] = times[f"k4_{kind}"][b]["plain_ms"]
+                    for field in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                        if field in times[f"k4_{kind}"][b]:
+                            entry[f"{field}_{kind}_b{b}"] = times[f"k4_{kind}"][b][field]
         kernels.append(entry)
+    t = k5_times
+    kernels.append({
+        "name": "decode_step_megakernel", "route": "cuda", "source": src + "megakernel.cu",
+        "replaces": "meshanything_tpu/ops/megakernel.py:86", "launches": launches["k5"],
+        "max_abs_err": worst["k5"], "ms": t[(1, 7459)]["ms"], "plain_ms": t[(1, 7459)]["plain_ms"],
+        "bound_ms": t[(1, 7459)]["bound_ms"], "bound_by": t[(1, 7459)]["bound_by"],
+        "library_ms": None, "cur_len": 7459,
+        **{f"{field}_b{b}_len{n}": t[(b, n)][field] for b in (1, 16) for n in K5_TIME_LENS
+           for field in ("ms", "plain_ms", "bound_ms", "k1_loop_ms")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,7 +11,9 @@ The fast tier: ``--attn pallas_int8|pallas_int4`` (quantized KV cache),
 ``--lookahead N|adaptive`` (Jacobi windows), ``--wq`` (int8 W8A8 layer
 matrices), and ``--fast``, which means ``--wq --attn pallas_int8
 --lookahead 8`` with an explicit ``--attn``/``--lookahead`` winning over
-the preset. Flags of slices not ported yet raise.
+the preset. Flags of slices not ported yet raise. As in the JAX CLI,
+``--attn megakernel`` is no choice: ``InferencePipeline(attn="megakernel")``
+is that path's entry.
 """
 from __future__ import annotations
 
@@ -41,9 +43,12 @@ def get_args(argv=None):
                         type=lambda v: v if v == "adaptive" else int(v),
                         help="Jacobi lookahead window; 'adaptive' switches between 8 and 16 "
                              "on measured acceptance")
-    parser.add_argument("--attn", default="auto", type=str,
+    # the JAX CLI's choices: "megakernel" is no CLI choice there either; its
+    # entry is InferencePipeline(attn="megakernel")
+    parser.add_argument("--attn", default="auto",
+                        choices=["auto", "pallas", "pallas_int8", "pallas_int4", "xla"],
                         help="decode cache tier: auto (= pallas), pallas, pallas_int8, "
-                             "pallas_int4")
+                             "pallas_int4 (xla: not ported)")
     parser.add_argument("--wq", default=False, action="store_true",
                         help="int8 W8A8 decode-loop weights (prefill and lm_head stay)")
     parser.add_argument("--fast", default=False, action="store_true",

@@ -201,6 +201,14 @@ def resize_window(state: LookaheadState, new_w: int) -> LookaheadState:
     return dataclasses.replace(state, window=win)
 
 
+def check_attn(attn: str) -> None:
+    """Raise for a cache tier the window loop does not run."""
+    if attn == "megakernel":
+        raise NotImplementedError(
+            "lookahead with attn='megakernel' is not ported: the window loop has no "
+            "megakernel path (JAX runs its XLA tier there, which the port does not have)")
+
+
 def init_lookahead_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, *,
                          max_new_tokens: int, window: int = 8, bucket: int = 512,
                          attn: str = "pallas", sampling: bool = False, top_k: int = 50,
@@ -210,6 +218,7 @@ def init_lookahead_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Te
     window) sizes the token buffer's scratch tail and the cache padding
     for the widest window the state will be resized to."""
     attn = resolve_attn(attn)
+    check_attn(attn)
     bw = window if buf_window is None else buf_window
     if bw < window:
         raise ValueError(f"buf_window={bw} must be >= window={window}")

@@ -85,7 +85,8 @@ def generate(m: MeshAnything, cfg: MeshAnythingConfig, pc_normal: torch.Tensor, 
     """Full inference pass (meshanything.py:134-176) on (B, N, 6)
     normalized points+normals. ``lookahead`` > 0 decodes with Jacobi
     windows of that width (``models/lookahead.py``; with ``sampling``,
-    speculative sampling); ``attn`` picks the cache tier and ``wq`` the
+    speculative sampling); ``attn`` picks the cache tier, or "megakernel"
+    for one K5 launch a step (single-token loop only), and ``wq`` the
     int8 layer matrices (``models/shape_opt.py``)."""
     point_feature, cond = encode(m, cfg, pc_normal)
     kw = dict(max_new_tokens=cfg.generate_length, sampling=sampling, generator=generator,

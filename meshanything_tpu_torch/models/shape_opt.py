@@ -21,6 +21,11 @@ calls the attention kernel over exactly ``write_pos + 1`` rows:
       codes and scales at ``write_pos``, and calls K2 / K3. The prefill
       runs into a compact condition-length tensor that is quantized into
       the preallocated caches (a full-length bf16 cache never exists).
+  attn="megakernel": the exact tier's cache and prefill; the whole layer
+      stack of a step is one launch of K5 (``ops.megakernel``) on the
+      layers packed once per decode loop, with K5's numerics (bf16
+      weights, f32 residual stream); embedding, lm_head and sampling stay
+      as in the other tiers. It does not compose with ``wq``.
 
 wq=True runs the four per-layer matrices of the decode loop as int8 W8A8
 (``ops/wquant.py``); prefill, embeddings and lm_head stay in the
@@ -53,10 +58,15 @@ from meshanything_tpu_torch.ops.kvcache import (
     alloc_quantized_cache,
     quantize_rows_for,
 )
+from meshanything_tpu_torch.ops.megakernel import (
+    MegakernelLayers,
+    decode_step_megakernel,
+    pack_megakernel_layers,
+)
 from meshanything_tpu_torch.ops.sampling import sample_token
 from meshanything_tpu_torch.ops.wquant import lin_dispatch, quantize_opt_layers
 
-ATTN_MODES = ("pallas", "pallas_int8", "pallas_int4")
+ATTN_MODES = ("pallas", "pallas_int8", "pallas_int4", "megakernel")
 # a cache: one (2, L, B, S, H*D) tensor, or (values, scales) when quantized
 Cache = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -224,12 +234,14 @@ def _step_attention(state: DecodeState, layer_idx: int, write_pos: int, q: torch
 
 
 def decode_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
-                wq_layers: Optional[Sequence] = None, sampling: bool = False, top_k: int = 50,
-                top_p: float = 0.95, temperature: float = 1.0) -> torch.Tensor:
+                wq_layers: Optional[Sequence] = None,
+                mega_layers: Optional[MegakernelLayers] = None, sampling: bool = False,
+                top_k: int = 50, top_p: float = 0.95, temperature: float = 1.0) -> torch.Tensor:
     """One token for every row; updates ``state`` in place (cache row,
     token buffer, flags) and returns the step's f32 logits (B, vocab).
     ``wq_layers`` (``ops.wquant.quantize_opt_layers``) runs the layer
-    matrices as W8A8."""
+    matrices as W8A8; with ``attn="megakernel"`` the layer stack is one
+    K5 launch on ``mega_layers`` (``ops.megakernel.pack_megakernel_layers``)."""
     ids = state.last_token
     gen_index = state.step - 1
     dtype = p.cond_embed.dtype
@@ -243,11 +255,16 @@ def decode_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
     x = x + p.cond_embed[1].to(dtype)
     x = x + p.embed_positions[write_pos + cfg.pos_offset].to(dtype)
     b = x.shape[0]
-    for layer_idx, layer in enumerate(p.layers):
-        mats = layer if wq_layers is None else wq_layers[layer_idx]
-        q, k, v = lin_e(x, mats.qkv).chunk(3, dim=-1)
-        o = _step_attention(state, layer_idx, write_pos, q.reshape(b, h, hd).contiguous(), k, v)
-        x = layer.after_attention(x, o.reshape(b, h * hd), mats, lin_e)
+    if state.attn == "megakernel":
+        x = decode_step_megakernel(x, mega_layers, state.kv, write_pos, write_pos + 1,
+                                   num_heads=h, ln_eps=cfg.ln_eps)
+    else:
+        for layer_idx, layer in enumerate(p.layers):
+            mats = layer if wq_layers is None else wq_layers[layer_idx]
+            q, k, v = lin_e(x, mats.qkv).chunk(3, dim=-1)
+            o = _step_attention(state, layer_idx, write_pos, q.reshape(b, h, hd).contiguous(),
+                                k, v)
+            x = layer.after_attention(x, o.reshape(b, h * hd), mats, lin_e)
     logits = lin(x, p.lm_head).float()   # keeps the activation dtype's rounding
 
     next_token = sample_token(logits, sampling=sampling, top_k=top_k, top_p=top_p,
@@ -264,17 +281,25 @@ def decode_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
     return logits
 
 
+def check_wq(attn: str, wq: bool) -> None:
+    if wq and attn == "megakernel":
+        raise ValueError("wq (int8 weights) does not compose with the megakernel path")
+
+
 def decode_loop(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *, max_new_tokens: int,
                 sync_every: int = 64, wq: bool = False, **sample_kw) -> DecodeState:
     """Decode until ``max_new_tokens`` or until every row is done. The
     host reads the ``done`` flags every ``sync_every`` steps only. With
-    ``wq`` the layer matrices are quantized once, here (prefill ran on
-    the originals)."""
+    ``wq`` the layer matrices are quantized once, here, and with
+    ``attn="megakernel"`` they are packed for K5 once, here (prefill ran
+    on the originals)."""
+    check_wq(state.attn, wq)
     wq_layers = quantize_opt_layers(p.layers) if wq else None
+    mega_layers = pack_megakernel_layers(p.layers) if state.attn == "megakernel" else None
     while state.step < max_new_tokens:
         if (state.step - 1) % sync_every == 0 and bool(state.done.all()):
             break
-        decode_step(p, cfg, state, wq_layers=wq_layers, **sample_kw)
+        decode_step(p, cfg, state, wq_layers=wq_layers, mega_layers=mega_layers, **sample_kw)
     return state
 
 
@@ -284,8 +309,9 @@ def generate(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, *,
              generator: Optional[torch.Generator] = None, attn: str = "pallas",
              wq: bool = False) -> torch.Tensor:
     """Autoregressive generation -> (B, max_new_tokens) int64, eos-filled
-    past the stop point. Attention is K1, K2 or K3 on every step (see
-    the module docstring for ``attn`` and ``wq``)."""
+    past the stop point. Attention is K1, K2 or K3 on every step, or the
+    whole layer stack is K5 (see the module docstring for ``attn`` and
+    ``wq``)."""
     kw = dict(sampling=sampling, top_k=top_k, top_p=top_p, temperature=temperature)
     state = init_decode_state(p, cfg, cond_embeds, max_new_tokens=max_new_tokens,
                               bucket=bucket, generator=generator, attn=attn, **kw)

@@ -5,7 +5,9 @@ of the three phases of ``runtime/phases.py``: encode, decode, detok).
 The decode phase runs the single-token loop (``models/shape_opt.py``) or,
 with ``lookahead`` (a window width, or "adaptive" for the 8/16 window
 controller of ``models/lookahead.py``), the Jacobi window loop; ``attn``
-picks the cache tier and ``wq`` the int8 layer matrices.
+picks the cache tier ("megakernel": the whole layer stack of a step in
+one K5 launch, single-token loop only) and ``wq`` the int8 layer
+matrices.
 
 A failure anywhere, a kernel fault included, ends the run: nothing here
 turns an exception into a result record.
@@ -83,6 +85,9 @@ class InferencePipeline:
         self.batch_size = batch_size
         self.bucket = bucket
         self.attn = opt_mod.resolve_attn(attn)
+        if lookahead:
+            la_mod.check_attn(self.attn)
+        opt_mod.check_wq(self.attn, wq)
         self.lookahead = lookahead
         self.wq = wq
         self.device = next(model.parameters()).device

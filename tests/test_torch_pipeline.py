@@ -141,7 +141,7 @@ def test_cli_writes_the_jax_pipelines_obj_bytes(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--mc"], ["--pretrained_weights", "w.pth"],
-                                   ["--attn", "xla"], ["--attn", "megakernel"],
+                                   ["--attn", "xla"],
                                    ["--fast", "--attn", "xla"],
                                    ["--complete_from", "p.obj"], []])
 def test_cli_refuses_what_is_not_ported(flags):
@@ -149,6 +149,19 @@ def test_cli_refuses_what_is_not_ported(flags):
                         + ([] if flags == [] else ["--random_weights"]))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.check_ported(args)
+
+
+def test_cli_refuses_attn_megakernel_as_jax_does(capsys):
+    """``--attn megakernel`` is no choice of the JAX CLI's argparse, and
+    none of the port's: InferencePipeline(attn="megakernel") is the entry."""
+    from meshanything_tpu.cli import get_args as jax_get_args
+
+    argv = ["--input_path", "x.npy", "--random_weights", "--attn", "megakernel"]
+    for get_args in (cli.get_args, jax_get_args):
+        with pytest.raises(SystemExit) as exc:
+            get_args(argv)
+        assert exc.value.code == 2
+        assert "invalid choice: 'megakernel'" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags,attn,lookahead,wq", [
