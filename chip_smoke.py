@@ -5,10 +5,12 @@
 
 Phases, each printing JSON lines; any failure exits non-zero:
 
-  1. device: a CUDA card is required (no CPU fallback);
+  1. device: a CUDA card is required (no CPU fallback); then the canary:
+     T5 (csrc/probes.cu, built alone in seconds) against its plain
+     version, exact, before the slow builds start;
   2. build: K1 (csrc/decode_attention.cu), K2-K4
-     (csrc/decode_attention_fast.cu) and K5 (csrc/megakernel.cu) are
-     compiled with nvcc, all three at once;
+     (csrc/decode_attention_fast.cu), K5 (csrc/megakernel.cu) and T4
+     (csrc/k1_probe.cu) are compiled with nvcc, all four at once;
   3. K1 against its plain PyTorch version at the production shapes
      (L=24, H=16, D=64, S=7680, layer 23; B 1 and 16; cur_len 1, 257,
      4000, 7459; f32 and bf16), with a NaN tail past cur_len and NaN in
@@ -33,8 +35,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
      the output, rows below write_pos unchanged; then K5, its plain
      version and the eager 24-layer K1 layer loop of the exact tier timed
      for the same step at B 1 and 16, cur_len 7459 and 300;
+  7a. the measurement kernels (probe_check): T1-T3 against their plain
+     versions on integer-valued random data, where the f32 sums are
+     exact in any order (bf16 and int8, chunk 512 and 64, depth 2 and 4,
+     start 0 and nchunks-1, rot both ways, one or two barriers a slot,
+     arrays past 2^31 bytes, and the 4 GiB arrays that are timed); T4 at
+     the production shapes and at the cur_len it is timed at: `full`
+     bit-equal to K1 at B 1 and 16 with NaN past the live rows, every
+     other mode against its plain version; then (probe_time) T1-T3 timed
+     at 4 GiB, T4 per mode at B 1 and 16, T5 at (8, 128) and at 1 GiB,
+     each beside its bound and the PyTorch call computing the same
+     function, and roof_gbs, the best sustained read rate seen;
+  7b. the measurement path through its entry points, with every count set
+     to 0 before and read after: runtime/bwprobe, tools/dma_wire_probe
+     (default at 4 GiB with `dual`, then `verify`), tools/pipe_compute_probe
+     and tools/build_canary; each must launch its kernels and no other;
   8. the main path: the CLI at the full 350M width on seeded random bf16
-     weights: the exact tier twice (K1; the B=2 run cut to 400 faces),
+     weights: the exact tier twice (K1; the B=1 run cut to 200 faces, the
+     B=2 run to 400),
      then F1 --fast (K4 int8 + W8A8),
      F2 --attn pallas_int4 --lookahead adaptive (K4 int4), F3 --lookahead
      8 (K4 bf16), F4 --attn pallas_int8 (K2) and F5 --attn pallas_int4
@@ -45,12 +63,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
   9. agreement on a small input: the small config on the card (through
      the kernels) against the same weights on the CPU (plain versions),
      exact tier, fast tiers and megakernel, in f32: tokens and coordinates
-     identical.
+     identical;
+  10. floor and budget: bwprobe's least seconds a mesh at roof_gbs beside
+     the measured exact and M1 runs; check_memory_budget's estimate, as the
+     pipeline made it before allocating, beside the peak bytes that each
+     run of phase 8 allocated (read from the card's allocator around the
+     run), which it must not be below; then tools/memory_probe's peaks by
+     phase at B=16 for the bf16, int8 and int4 caches, held to the same.
 
-Before the last line it prints {"kernels": [...]} (every kernel with its
-time, its plain version's, its byte or operation bound and the library
-call's time where there is one) and the card's name and power limit; the
-last line is {"ok": true, "device": {...}}.
+Before the last line it prints {"kernels": [...]} (K1-K5 and T1-T5, each
+with its time, its plain version's, its byte or operation bound, its
+share of the measured roof and the library call's time where there is
+one) and the card's name and power limit; the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -68,7 +93,9 @@ CUR_LENS = (7459, 4000, 257, 1)   # descending: each case poisons the rows past 
 BASES = (7450, 4000, 256, 1)
 WINDOWS = (4, 8, 16)
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-KERNEL_LIBS = ("decode_attention", "decode_attention_fast", "megakernel")
+KERNEL_LIBS = ("decode_attention", "decode_attention_fast", "megakernel", "k1_probe")
+PROBE_GIB = 4                     # T1-T3 are timed on arrays of this size
+PROBE_CUR = 7168                  # live rows T4 is timed at (the TPU tool's)
 FFN = 4096                        # the 350M model's fc1 width
 K5_TIME_LENS = (7459, 300)        # a long and a short context
 # (batch, cur_lens) of the K5 checks: B 1 and 2 (the M1 and M2 runs) and 16
@@ -146,10 +173,16 @@ def check_k1(torch, da) -> float:
     return worst
 
 
-def _close(out, plain, tol: float) -> tuple[float, bool]:
-    """(max |out - plain|, |out - plain| <= tol + tol * |plain| everywhere)."""
+def _close(out, plain, tol: float, by_vector: bool = False) -> tuple[float, bool]:
+    """(max |out - plain|, |out - plain| <= tol + tol * |plain| everywhere).
+    by_vector: |plain| is the largest magnitude along the last axis, for
+    outputs that are undivided sums of thousands of terms, whose rounding
+    grows with the sum's terms and not with the element it leaves."""
     diff = (out.float() - plain.float()).abs()
-    return diff.max().item(), bool((diff <= tol + tol * plain.float().abs()).all())
+    scale = plain.float().abs()
+    if by_vector:
+        scale = scale.amax(dim=-1, keepdim=True)
+    return diff.max().item(), bool((diff <= tol + tol * scale).all())
 
 
 def _events_ms(torch, run, iters: int) -> float:
@@ -600,6 +633,411 @@ def time_k5(torch, mk, da, card: str) -> dict:
     return times
 
 
+def _stream_cases(torch, pr, x0, x1, chunk: int, depth: int) -> dict:
+    """T1-T3 on (x0, x1) against their plain versions -> {kernel: [abs errors]}."""
+    nchunks = x0.shape[0] // chunk
+    errs = {"t1": [], "t2": [], "t3": []}
+
+    def err(got, want):
+        return (got - want).abs().item()
+
+    errs["t1"].append(err(pr.stream(x0, chunk, depth), pr.stream_reference(x0, chunk)))
+    for start in (0, nchunks - 1):
+        for rot in (True, False):
+            errs["t2"].append(err(pr.stream_rot(x0, start, chunk, depth, rot),
+                                  pr.stream_rot_reference(x0, start, chunk)))
+    for nsem in (1, 2):
+        errs["t3"].append(err(pr.dual_stream(x0, x1, chunk, depth, nsem),
+                              pr.dual_stream_reference(x0, x1, chunk)))
+    torch.cuda.synchronize()
+    return errs
+
+
+def check_streams(torch, pr) -> dict:
+    """Phase 7a for T1-T3 on rows of random integers in [-8, 8], whose f32
+    sums are exact in any order: every sum must equal its plain
+    version's exactly. Returns the largest error per kernel (0.0)."""
+    from meshanything_tpu_torch.tools.dma_wire_probe import integer_rows
+    worst = {"t1": 0.0, "t2": 0.0, "t3": 0.0}
+    failures = []
+    cases = [(name, 32768, chunk, depth) for name in ("bfloat16", "int8")
+             for chunk in (512, 64) for depth in (2, 4)]
+    # past 2^31 bytes: a 32-bit byte offset would wrap onto other chunks
+    cases += [("int8", 2 ** 21 + 1024, 512, 2), ("bfloat16", 2 ** 20 + 1024, 512, 2)]
+    # the arrays that time_streams and the tools time, at their chunk and depth
+    cases += [("bfloat16", PROBE_GIB * 2 ** 30 // (H * D * 2), 512, 2),
+              ("int8", PROBE_GIB * 2 ** 30 // (H * D), 512, 2)]
+    for seed, (name, rows, chunk, depth) in enumerate(cases):
+        dtype = getattr(torch, name)
+        x0 = integer_rows(torch, rows, dtype, "cuda", 100 + 2 * seed)
+        x1 = integer_rows(torch, rows, dtype, "cuda", 101 + 2 * seed)
+        errs = _stream_cases(torch, pr, x0, x1, chunk, depth)
+        ok = all(e == 0.0 for es in errs.values() for e in es)
+        for key, es in errs.items():
+            worst[key] = max(worst[key], *es)
+        emit("probe_check", kernels="t1-t3", dtype=name, rows=rows, chunk=chunk, depth=depth,
+             array_bytes=x0.numel() * x0.element_size(), abs_err=errs, tolerance=0.0, ok=ok)
+        if not ok:
+            failures.append((name, rows, chunk, depth))
+        del x0, x1
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"T1-T3 disagree with their plain versions: {failures}")
+    return worst
+
+
+def check_k1_probe(torch, kp, da) -> float:
+    """Phase 7a for T4 at the production shapes: ``full`` equals K1 bit
+    for bit, NaN past cur_len and in every other layer never reaches any
+    mode's output, and every other mode is within tolerance of its plain
+    version run over the kernel's own context splits (the modes that
+    return the undivided accumulator: relative to the head vector's
+    largest magnitude). Returns the largest
+    error of the (B, H, D) outputs."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, failures = 0.0, []
+    for batch in (1, 16):
+        for name in ("float32", "bfloat16"):
+            dtype = getattr(torch, name)
+            kv = torch.full((2, L, batch, S, H * D), float("nan"), dtype=dtype, device="cuda")
+            kv[:, LAYER] = torch.randn((2, batch, S, H * D), generator=gen, device="cuda",
+                                       dtype=dtype) * 0.3
+            q = torch.randn((batch, H, D), generator=gen, device="cuda", dtype=dtype)
+            # descending, with the cur_len that every mode is timed at
+            for cur in sorted({*CUR_LENS, PROBE_CUR}, reverse=True):
+                kv[:, LAYER, :, cur:] = float("nan")
+                full = kp.k1_probe(q, kv, LAYER, cur, chunk=kp.K1_TILE, mode="full")
+                bit_equal = bool(torch.equal(full, da.decode_attention(q, kv, LAYER, cur)))
+                errs, ok = {}, bit_equal and bool(torch.isfinite(full).all())
+                for mode in kp.MODES[1:]:
+                    rows_per_split, _ = kp.k1_probe_plan(batch, H, cur, sms, mode)
+                    got = kp.k1_probe(q, kv, LAYER, cur, chunk=kp.K1_TILE, mode=mode)
+                    want = kp.k1_probe_reference(q, kv, LAYER, cur, chunk=kp.K1_TILE, mode=mode,
+                                                 rows_per_split=rows_per_split)
+                    if mode == "no_combine":     # f32 partials whatever q's dtype
+                        pairs, tol = list(zip(got, want)), TOL["float32"]
+                    else:
+                        pairs, tol = [(got, want)], TOL[name]
+                    # tap, qk, softmax and pv return the accumulator undivided, and so
+                    # does no_combine in o_part (its other tensor holds m and l)
+                    undivided = mode in ("tap", "qk", "softmax", "pv", "no_combine")
+                    close = [_close(a, b, tol, by_vector=undivided and i == 0)
+                             for i, (a, b) in enumerate(pairs)]
+                    errs[mode] = max(e for e, _ in close)
+                    ok = ok and all(w for _, w in close) and all(
+                        bool(torch.isfinite(a).all()) for a, _ in pairs)
+                    if mode != "no_combine":
+                        worst = max(worst, errs[mode])
+                torch.cuda.synchronize()
+                emit("probe_check", kernels="t4", batch=batch, dtype=name, cur_len=cur,
+                     full_bit_equal_to_k1=bit_equal, max_abs_err=errs, atol=TOL[name],
+                     rtol=TOL[name], partials_tol=TOL["float32"],
+                     rtol_of={"tap, qk, softmax, pv, o_part of no_combine": "largest |plain| of the head vector",
+                              "other modes": "|plain| of the element"}, ok=ok)
+                if not ok:
+                    failures.append((batch, name, cur))
+            del kv, q
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"T4 disagrees with K1 or with its plain version: {failures}")
+    return worst
+
+
+def _time_calls(torch, runs: dict, iters: int) -> dict:
+    """ms a call of each of ``runs`` (``kernel``, ``plain`` and, where
+    given, ``library``): device time between two CUDA events around
+    ``iters`` launches from Python (each call here takes about a
+    millisecond, so the host keeps ahead), in the order plain, kernel,
+    library, library, kernel, plain."""
+    for run in runs.values():     # warm-up: the first launches after a pause run slower
+        for _ in range(3):
+            run()
+    torch.cuda.synchronize()
+    got = {which: [] for which in runs}
+    for which in ("plain", "kernel", "library", "library", "kernel", "plain"):
+        if which in runs:
+            got[which].append(_events_ms(torch, runs[which], iters))
+    out = {"ms": sum(got["kernel"]) / 2, "plain_ms": sum(got["plain"]) / 2,
+           "kernel_runs_ms": got["kernel"], "plain_runs_ms": got["plain"]}
+    if "library" in runs:
+        out.update(library_ms=sum(got["library"]) / 2, library_runs_ms=got["library"])
+    return out
+
+
+def time_streams(torch, pr, card: str) -> tuple[dict, float]:
+    """Phase 7a (times) for T1-T3 at PROBE_GIB GiB, chunk 512, depth 2:
+    ({kernel: times}, roof_gbs). The library calls are
+    ``torch.sum(x, dtype=float32)`` and a device-to-device ``copy_``;
+    roof_gbs is the best sustained rate of T1-T3, ``torch.sum`` and
+    ``copy_`` (its reads and writes counted), over both dtypes."""
+    from meshanything_tpu_torch.tools.dma_wire_probe import integer_rows
+
+    chunk, iters = 512, 8
+    times, rates = {}, {}
+    for name in ("bfloat16", "int8"):
+        dtype = getattr(torch, name)
+        rows = PROBE_GIB * 2 ** 30 // (H * D * torch.empty((), dtype=dtype).element_size())
+        nbytes = PROBE_GIB * 2 ** 30
+        nchunks = rows // chunk
+        x = integer_rows(torch, rows, dtype, "cuda", 200)
+        y = torch.empty_like(x)
+        calls = {"n": 0}
+
+        def numbered(fn):
+            def run():
+                calls["n"] += 1
+                return fn(calls["n"])
+            return run
+
+        t = _time_calls(torch, {"kernel": lambda: pr.stream(x, chunk),
+                                "plain": lambda: pr.stream_reference(x, chunk),
+                                "library": lambda: torch.sum(x, dtype=torch.float32)}, iters)
+        t["copy_ms"] = _events_ms(torch, lambda: y.copy_(x), iters)
+        t["depth4_ms"] = _events_ms(torch, lambda: pr.stream(x, chunk, 4), iters)
+        t["chunk64_ms"] = _events_ms(torch, lambda: pr.stream(x, 64), iters)
+        t["bound_ms"], t["bound_by"] = bound(nbytes + 4, rows // chunk, "float32")
+        rates[name] = {"t1": nbytes / t["ms"] / 1e6, "torch_sum": nbytes / t["library_ms"] / 1e6,
+                       "copy": 2 * nbytes / t["copy_ms"] / 1e6}
+        times.setdefault("t1", {})[name] = t
+        emit("probe_time", kernel="t1", dtype=name, bytes=nbytes, chunk=chunk, depth=2, **t,
+             gb_per_s=rates[name], card=card)
+
+        t2 = _time_calls(torch, {
+            "kernel": numbered(lambda i: pr.stream_rot(x, i % nchunks, chunk)),
+            "plain": numbered(lambda i: pr.stream_rot_reference(x, i % nchunks, chunk)),
+            "library": lambda: torch.sum(x, dtype=torch.float32)}, iters)
+        t2["seeded_ms"] = _events_ms(torch, numbered(
+            lambda i: pr.stream_rot(x, i, chunk, rot=False)), iters)
+        t2["invariant_ms"] = t["ms"]
+        t2["bound_ms"], t2["bound_by"] = t["bound_ms"], t["bound_by"]
+        times.setdefault("t2", {})[name] = t2
+        emit("probe_time", kernel="t2", dtype=name, bytes=nbytes, chunk=chunk, depth=2, **t2,
+             gb_per_s={"rotated": nbytes / t2["ms"] / 1e6,
+                       "seeded": nbytes / t2["seeded_ms"] / 1e6,
+                       "invariant": nbytes / t["ms"] / 1e6}, card=card)
+
+        if name == "bfloat16":   # two separate allocations, as K1's K and V planes lie apart
+            y.copy_(x)
+            t3 = _time_calls(torch, {
+                "kernel": lambda: pr.dual_stream(x, y, chunk, 2, 1),
+                "plain": lambda: pr.dual_stream_reference(x, y, chunk),
+                "library": lambda: (torch.sum(x, dtype=torch.float32)
+                                    + torch.sum(y, dtype=torch.float32))}, iters)
+            t3["nsem2_ms"] = _events_ms(torch, lambda: pr.dual_stream(x, y, chunk, 2, 2), iters)
+            t3["nsem2_depth4_ms"] = _events_ms(torch, lambda: pr.dual_stream(x, y, chunk, 4, 2),
+                                               iters)
+            t3["bound_ms"], t3["bound_by"] = bound(2 * nbytes + 4, 2 * rows // chunk, "float32")
+            times["t3"] = {name: t3}
+            emit("probe_time", kernel="t3", dtype=name, bytes=2 * nbytes, chunk=chunk, **t3,
+                 gb_per_s={"nsem1_depth2": 2 * nbytes / t3["ms"] / 1e6,
+                           "nsem2_depth2": 2 * nbytes / t3["nsem2_ms"] / 1e6,
+                           "nsem2_depth4": 2 * nbytes / t3["nsem2_depth4_ms"] / 1e6,
+                           "single_stream": nbytes / t["ms"] / 1e6}, card=card)
+        del x, y
+        torch.cuda.empty_cache()
+    rates["bfloat16"].update(t2_rotated=PROBE_GIB * 2 ** 30 / times["t2"]["bfloat16"]["ms"] / 1e6,
+                             t3_dual=2 * PROBE_GIB * 2 ** 30 / times["t3"]["bfloat16"]["ms"] / 1e6)
+    roof = max(rate for by_dtype in rates.values() for rate in by_dtype.values())
+    emit("roof", roof_gbs=roof, data_sheet_gbs=HBM_BYTES_PER_S / 1e9,
+         share_of_data_sheet=roof / (HBM_BYTES_PER_S / 1e9), gb_per_s=rates, card=card)
+    return times, roof
+
+
+def time_k1_probe(torch, kp, da, card: str) -> dict:
+    """Phase 7a (times) for T4: every mode at cur_len PROBE_CUR, bf16, B 1
+    and 16, cycling the 24 layers (CUDA-graph replays between CUDA
+    events); ``full`` beside its plain version and
+    scaled_dot_product_attention. Returns {batch: times}."""
+    from meshanything_tpu_torch.runtime.bwprobe import time_loop
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cur, tile = PROBE_CUR, kp.K1_TILE
+    times = {}
+    for batch in (1, 16):
+        kv = torch.empty((2, L, batch, S, H * D), dtype=torch.bfloat16, device="cuda")
+        kv.normal_(0.0, 0.3, generator=gen)
+        q = torch.randn((batch, H, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+        heads = [tuple(kv[p, i, :, :cur].view(batch, cur, H, D).transpose(1, 2) for p in (0, 1))
+                 for i in range(L)]
+
+        def probe_sweep(mode):
+            return lambda: [kp.k1_probe(q, kv, i, cur, chunk=tile, mode=mode) for i in range(L)]
+
+        t = _time_sweeps(torch, {
+            "kernel": probe_sweep("full"),
+            "plain": lambda: [kp.k1_probe_reference(q, kv, i, cur, chunk=tile, mode="full")
+                              for i in range(L)],
+            "library": lambda: [sdpa(q[:, :, None], k, v) for k, v in heads]}, L)
+        live_bytes = 2 * batch * cur * H * D * 2
+        t["bound_ms"], t["bound_by"] = bound(live_bytes + 2 * q.numel() * 2,
+                                             4 * batch * cur * H * D, "bfloat16")
+        device = torch.device("cuda")
+        modes = {"full": t["ms"]}
+        for mode in kp.MODES[1:]:
+            modes[mode] = time_loop(probe_sweep(mode), 10, device, graph=True) * 1e3 / (10 * L)
+        t["k1_ms"] = time_loop(lambda: [da.decode_attention(q, kv, i, cur) for i in range(L)],
+                               10, device, graph=True) * 1e3 / (10 * L)
+        t["mode_ms"] = modes
+        times[batch] = t
+        emit("probe_time", kernel="t4", batch=batch, cur_len=cur, dtype="bfloat16", **t,
+             live_kv_bytes=live_bytes,
+             mode_gb_per_s={m: live_bytes / ms / 1e6 for m, ms in modes.items()}, card=card)
+        del kv, q, heads
+        torch.cuda.empty_cache()
+    return times
+
+
+def time_canary(torch, pr, card: str) -> dict:
+    """Phase 7a (times) for T5 at (8, 128), where the launch bounds it
+    (CUDA-graph replays of 24 calls), and at 1 GiB f32, where the bytes
+    do; the library call is ``torch.add(c, x, alpha=2)``."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    c = torch.tensor(0.5, device="cuda")
+    times = {}
+    x = torch.randn((8, 128), generator=gen, device="cuda")
+
+    def err(x):
+        return (pr.scale_shift(x, 0.5) - pr.scale_shift_reference(x, 0.5)).abs().max().item()
+
+    errs = {"small": err(x)}
+    t = _time_sweeps(torch, {
+        "kernel": lambda: [pr.scale_shift(x, 0.5) for _ in range(L)],
+        "plain": lambda: [pr.scale_shift_reference(x, 0.5) for _ in range(L)],
+        "library": lambda: [torch.add(c, x, alpha=2.0) for _ in range(L)]}, L)
+    t["bound_ms"], t["bound_by"] = bound(2 * x.numel() * 4, 2 * x.numel(), "float32")
+    times["small"] = t
+    t["max_abs_err"] = errs["small"]
+    emit("probe_time", kernel="t5", shape=[8, 128], **t, tolerance=0.0, card=card)
+    x = torch.randn((2 ** 28,), generator=gen, device="cuda")
+    errs["large"] = err(x)
+    t = _time_calls(torch, {"kernel": lambda: pr.scale_shift(x, 0.5),
+                            "plain": lambda: pr.scale_shift_reference(x, 0.5),
+                            "library": lambda: torch.add(c, x, alpha=2.0)}, 8)
+    t["bound_ms"], t["bound_by"] = bound(2 * x.numel() * 4, 2 * x.numel(), "float32")
+    times["large"] = t
+    t["max_abs_err"] = errs["large"]
+    emit("probe_time", kernel="t5", shape=[2 ** 28], **t, tolerance=0.0,
+         gb_per_s=2 * x.numel() * 4 / t["ms"] / 1e6, card=card)
+    if max(errs.values()) != 0.0:
+        raise AssertionError(f"T5 disagrees with its plain version: {errs}")
+    return times
+
+
+def drive_measurement_path(torch, wrappers: dict) -> dict:
+    """Phase 7b: the measurement path through the entry points a user
+    calls, each with every count set to 0 just before and read just
+    after; each must launch the kernels named for it and no other.
+    Returns the launches summed over the entries."""
+    from meshanything_tpu_torch.runtime import bwprobe
+    from meshanything_tpu_torch.tools import build_canary, dma_wire_probe, pipe_compute_probe
+
+    entries = (
+        ("build_canary", build_canary.main, [], {"t5"}),
+        ("bwprobe", bwprobe.main, [], {"t5", "t1", "k1"}),
+        ("dma_wire_probe", dma_wire_probe.main, [str(PROBE_GIB), "512", "dual"],
+         {"t5", "t1", "t3"}),
+        ("dma_wire_probe verify", dma_wire_probe.main, [str(PROBE_GIB), "512", "verify"],
+         {"t5", "t1", "t2"}),
+        ("pipe_compute_probe", pipe_compute_probe.main, [], {"t5", "t4", "k1"}),
+    )
+    total = {k: 0 for k in wrappers}
+    for name, entry, argv, expected in entries:
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rc = entry(argv)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        emit("measurement_path", entry=name, argv=argv, rc=rc, launches=launches,
+             wall_s=time.perf_counter() - t0)
+        launched = {k for k, n in launches.items() if n}
+        if rc != 0 or launched != expected:
+            raise AssertionError(f"{name}: rc {rc}, launched {sorted(launched)}, expected "
+                                 f"{sorted(expected)}")
+        for k, n in launches.items():
+            total[k] += n
+    return total
+
+
+def floors_and_budget(torch, runs: list, roof_gbs: float, card: str) -> None:
+    """Phase 10: bwprobe's least seconds a mesh at the measured roof beside
+    the measured runs, and check_memory_budget's estimate (as the pipeline
+    made it before allocating) beside the peak bytes each run of phase 8
+    allocated, its weights included: the estimate must not be below the
+    peak. Then the memory probe's peaks by phase at B=16 over the bf16,
+    int8 and int4 caches, the readings that the estimate's constants are
+    set from."""
+    from meshanything_tpu_torch.config import MeshAnythingConfig
+    from meshanything_tpu_torch.runtime.bwprobe import decode_bytes, exact_floor_seconds
+    from meshanything_tpu_torch.runtime.checkpoint import init_random_params
+    from meshanything_tpu_torch.runtime.phases import device_limit_bytes
+    from meshanything_tpu_torch.tools.memory_probe import phase_peaks
+
+    by_name = {r["run"]: r for r in runs}
+    full, cut = MeshAnythingConfig(dtype="bfloat16"), MeshAnythingConfig(dtype="bfloat16",
+                                                                         n_max_triangles=200)
+    emit("floor", roof_gbs=roof_gbs, decode_bytes=decode_bytes(full),
+         exact_bf16_b1_s=exact_floor_seconds(full, roof_gbs, 1),
+         exact_bf16_b16_s=exact_floor_seconds(full, roof_gbs, 16),
+         int8_b16_s=exact_floor_seconds(full, roof_gbs, 16, int8=True),
+         exact_bf16_b1_200_faces_s=exact_floor_seconds(cut, roof_gbs, 1),
+         measured_exact_pc_200_faces_s=by_name["exact_pc"]["device_s_per_mesh"],
+         measured_m1_s=by_name["M1"]["device_s_per_mesh"], card=card)
+
+    failures = []
+    for name, run in by_name.items():
+        estimate, peak = run["budget_estimate_bytes"], run["peak_run_bytes"]
+        emit("budget", run=name, argv=run["argv"], estimate_bytes=estimate,
+             peak_run_bytes=peak, estimate_over_peak=estimate / peak,
+             limit_bytes=device_limit_bytes(torch.device("cuda")), card=card)
+        if estimate < peak:
+            failures.append(name)
+    if failures:
+        raise AssertionError(f"the memory estimate is below the measured peak: {failures}")
+    model = init_random_params(full, torch.Generator(device="cuda").manual_seed(0),
+                               full.activation_dtype)
+    for attn in ("pallas", "pallas_int8", "pallas_int4"):
+        emit("budget", **phase_peaks(model, full, 16, attn), card=card)   # raises if below
+
+
+def probe_kernel_entries(times: dict, launches: dict, worst: dict) -> list:
+    """The ``kernels`` entries of T1-T5: the headline numbers are T1-T3 on
+    4 GiB of bf16 (chunk 512, depth 2), T4 ``full`` at B=1 and T5 at
+    (8, 128); the other sizes ride along under suffixed keys."""
+    src = "meshanything_tpu_torch/csrc/"
+    fields = ("ms", "plain_ms", "bound_ms", "library_ms")
+
+    def entry(key, name, source, replaces, t, **more):
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+                "launches": launches[key], "max_abs_err": worst[key],
+                **{f: t[f] for f in fields}, "bound_by": t["bound_by"], **more}
+
+    wire = "tools/dma_wire_probe.py:"
+    t1, t2, t3 = times["t1"], times["t2"], times["t3"]["bfloat16"]
+    t4, t5 = times["t4"], times["t5"]
+    return [
+        entry("t1", "stream", "probes.cu", wire + "44", t1["bfloat16"], bytes=PROBE_GIB * 2 ** 30,
+              copy_ms=t1["bfloat16"]["copy_ms"], depth4_ms=t1["bfloat16"]["depth4_ms"],
+              chunk64_ms=t1["bfloat16"]["chunk64_ms"],
+              **{f"{f}_int8": t1["int8"][f] for f in fields}),
+        entry("t2", "stream_rot", "probes.cu", wire + "92", t2["bfloat16"],
+              bytes=PROBE_GIB * 2 ** 30, seeded_ms=t2["bfloat16"]["seeded_ms"],
+              invariant_ms=t2["bfloat16"]["invariant_ms"],
+              **{f"{f}_int8": t2["int8"][f] for f in fields}),
+        entry("t3", "dual_stream", "probes.cu", wire + "256", t3, bytes=2 * PROBE_GIB * 2 ** 30,
+              nsem2_ms=t3["nsem2_ms"], nsem2_depth4_ms=t3["nsem2_depth4_ms"]),
+        entry("t4", "k1_probe", "k1_probe.cu", "tools/pipe_compute_probe.py:57", t4[1],
+              cur_len=PROBE_CUR, mode_ms=t4[1]["mode_ms"], k1_ms=t4[1]["k1_ms"],
+              **{f"{f}_b16": t4[16][f] for f in fields}, mode_ms_b16=t4[16]["mode_ms"],
+              k1_ms_b16=t4[16]["k1_ms"]),
+        entry("t5", "scale_shift", "probes.cu", "tools/xla_cpu_crash_repro.py:86", t5["small"],
+              shape=[8, 128], **{f"{f}_1gib": t5["large"][f] for f in fields}),
+    ]
+
+
 def write_inputs(tmp: str) -> tuple[str, str]:
     """A seeded 8192-point cloud with normals (.npy) and two small meshes."""
     import numpy as np
@@ -654,14 +1092,43 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
     or the pipeline). Every kernel's count is set to 0 just before it and
     read just after: ``kernel`` must have launched 24 times per decode
     step (K1-K3) or per window forward (K4), or once per decode step
-    (K5), and no other kernel at all."""
+    (K5), and no other kernel at all. For phase 10 the peak of allocated
+    bytes that a generation of the run reached is read from the card's
+    allocator, above what was allocated before the run loaded its model
+    (so the weights, and whatever the run keeps beside them, are in it).
+    The peak is set back each time the pipeline makes its estimate, which
+    it does with its model loaded, just before a batch allocates: what
+    the loader held while it made the weights is not a generation's."""
+    import gc
+
+    from meshanything_tpu_torch.runtime import pipeline
+
+    estimates, peaks = [], []
+    check = pipeline.check_memory_budget
+
+    def recording_check(*args, **kwargs):
+        peaks.append(torch.cuda.max_memory_allocated())   # the batch before; first the loader's
+        torch.cuda.reset_peak_memory_stats()
+        estimates.append(check(*args, **kwargs))
+        return estimates[-1]
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    results = run()
+    pipeline.check_memory_budget = recording_check
+    try:
+        results = run()
+    finally:
+        pipeline.check_memory_budget = check
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
+    peaks.append(torch.cuda.max_memory_allocated())
+    peak = max(peaks[1:]) - base
     if len(results) != expect:
         raise AssertionError(f"{name}: {len(results)} results, expected {expect}")
     batches = {r["batch"]: r for r in results}
@@ -687,6 +1154,7 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
         "wall_s_per_mesh": wall / len(results),
         "decode_tokens_per_s": steps * batch_size / decode_s,
         "faces": [r["faces_final"] for r in results],
+        "budget_estimate_bytes": max(estimates), "peak_run_bytes": peak,
     }
     if kernel == "k4":
         info["window_forwards"] = units
@@ -751,7 +1219,10 @@ def main() -> int:
     from meshanything_tpu_torch.geometry import load_obj
     from meshanything_tpu_torch.ops import _build
     from meshanything_tpu_torch.ops import decode_attention as da
+    from meshanything_tpu_torch.ops import k1_probe as kp
     from meshanything_tpu_torch.ops import megakernel as mk
+    from meshanything_tpu_torch.ops import probes as pr
+    from meshanything_tpu_torch.tools.build_canary import canary
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -759,6 +1230,10 @@ def main() -> int:
     card = card_line()
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda)
+    # the canary first: nvcc, the architecture and a launch are proven in
+    # seconds, before the slow builds start
+    first = canary(torch.device("cuda"))
+    emit("canary", **first, tolerance=0.0)
 
     with ThreadPoolExecutor(len(KERNEL_LIBS)) as pool:   # one nvcc per source, all at once
         libs = list(pool.map(_build.load, KERNEL_LIBS))
@@ -770,10 +1245,17 @@ def main() -> int:
     times = {"k1": time_k1(torch, da, card), **time_fast(torch, da, card)}
     worst["k5"] = check_k5(torch, mk)
     k5_times = time_k5(torch, mk, da, card)
+    worst.update(check_streams(torch, pr), t4=check_k1_probe(torch, kp, da))
+    probe_times, roof_gbs = time_streams(torch, pr, card)
+    probe_times.update(t4=time_k1_probe(torch, kp, da, card), t5=time_canary(torch, pr, card))
+    worst["t5"] = max(first["max_abs_err"],
+                      *(t["max_abs_err"] for t in probe_times["t5"].values()))
 
     wrappers = {"k1": da.decode_attention, "k2": da.decode_attention_int8,
                 "k3": da.decode_attention_int4, "k4": da.decode_attention_mq,
-                "k5": mk.decode_step_megakernel}
+                "k5": mk.decode_step_megakernel, "t1": pr.stream, "t2": pr.stream_rot,
+                "t3": pr.dual_stream, "t4": kp.k1_probe, "t5": pr.scale_shift}
+    probe_launches = drive_measurement_path(torch, wrappers)
 
     def cli_run(argv):
         return lambda: cli.main(argv)
@@ -787,8 +1269,9 @@ def main() -> int:
                   *common]
         short = ["--n_max_triangles", "100"]
         cli_runs = [
-            ("exact_pc", pc, 1, "k1", 800),
-            # depth cut (400 faces, 3601 steps) to keep the smoke near half its time limit
+            # depth cuts (200 faces, 1801 steps; 400 faces, 3601 steps) to keep the smoke
+            # near half its time limit; M1 is the full-length B=1 run
+            ("exact_pc", ["--n_max_triangles", "200", *pc], 1, "k1", 200),
             ("exact_meshes", ["--n_max_triangles", "400", *meshes], 2, "k1", 400),
             ("F1", ["--fast", *pc], 1, "k4", 800),
             ("F2", ["--attn", "pallas_int4", "--lookahead", "adaptive", *meshes], 2, "k4", 800),
@@ -814,6 +1297,7 @@ def main() -> int:
                                 "n_max_triangles=400"]),
         ]
     small_input_agreement(torch)
+    floors_and_budget(torch, runs, roof_gbs, card)
 
     launches = {k: sum(r["launches"][k] for r in runs) for k in wrappers}
     src = "meshanything_tpu_torch/csrc/"
@@ -848,7 +1332,19 @@ def main() -> int:
         "library_ms": None, "cur_len": 7459,
         **{f"{field}_b{b}_len{n}": t[(b, n)][field] for b in (1, 16) for n in K5_TIME_LENS
            for field in ("ms", "plain_ms", "bound_ms", "k1_loop_ms")}})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    kernels[0]["launches_measurement_path"] = probe_launches["k1"]   # bwprobe and T4's check
+    kernels += probe_kernel_entries(probe_times, probe_launches, worst)
+    data_sheet_gbs = HBM_BYTES_PER_S / 1e9
+    for entry in kernels:
+        # the share of the measured roof that the kernel reaches: its byte bound, taken
+        # at roof_gbs instead of the data sheet's rate, over its time
+        for key in [k for k in entry if k == "ms" or k.startswith("ms_")]:
+            bound_key = "bound_ms" + key[2:]
+            if entry.get(bound_key) is not None and entry["bound_by"] == "bytes":
+                entry["share_of_roof" + key[2:]] = (entry[bound_key] * data_sheet_gbs / roof_gbs
+                                                    / entry[key])
+    print(json.dumps({"kernels": kernels, "roof_gbs": roof_gbs,
+                      "data_sheet_gbs": data_sheet_gbs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

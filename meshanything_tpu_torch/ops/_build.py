@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``meshanything_tpu_torch/_build/`` and loaded with ``ctypes``. The file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing is built when the
-package is imported.
+name carries a hash of the source, of the ``csrc`` files it includes and
+of the flags, so an edited source is rebuilt and a stale library is
+never loaded. Nothing is built when the package is imported.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -53,13 +54,25 @@ def find_nvcc() -> str:
         "the CUDA kernels are built from meshanything_tpu_torch/csrc at first use")
 
 
+def _source_with_includes(path: str, seen: set) -> bytes:
+    """The bytes of ``path`` and, after them, of every ``csrc`` file it
+    includes with ``#include "..."`` (each once)."""
+    seen.add(path)
+    with open(path, "rb") as fh:
+        source = fh.read()
+    for included in re.findall(rb'^\s*#include\s+"([^"]+)"', source, flags=re.M):
+        inc = os.path.join(CSRC_DIR, included.decode())
+        if inc not in seen and os.path.isfile(inc):
+            source += _source_with_includes(inc, seen)
+    return source
+
+
 def load(name: str) -> KernelLibrary:
     """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
     if name in _loaded:
         return _loaded[name]
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as fh:
-        source = fh.read()
+    source = _source_with_includes(src, set())
     key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so_path = os.path.join(BUILD_DIR, f"{name}-{key}.so")
     built, seconds, log = False, 0.0, ""

@@ -7,7 +7,9 @@ with ``lookahead`` (a window width, or "adaptive" for the 8/16 window
 controller of ``models/lookahead.py``), the Jacobi window loop; ``attn``
 picks the cache tier ("megakernel": the whole layer stack of a step in
 one K5 launch, single-token loop only) and ``wq`` the int8 layer
-matrices.
+matrices. On a card ``generate`` first holds the batch against the
+card's memory (``runtime/phases.py::check_memory_budget``); a ``timer``
+(``runtime/profiling.py::PhaseTimer``) is fed the three fenced phases.
 
 A failure anywhere, a kernel fault included, ends the run: nothing here
 turns an exception into a result record.
@@ -33,6 +35,8 @@ from meshanything_tpu_torch.models import lookahead as la_mod
 from meshanything_tpu_torch.models import meshanything as ma
 from meshanything_tpu_torch.models import shape_opt as opt_mod
 from meshanything_tpu_torch.ops.wquant import quantize_opt_layers
+from meshanything_tpu_torch.runtime.phases import check_memory_budget, param_tree_bytes
+from meshanything_tpu_torch.runtime.profiling import PhaseTimer, fence
 
 ADAPTIVE_WINDOWS = (8, 16)     # runtime/phases.py's adaptive_windows
 ADAPTIVE_CHECK_ITERS = 64
@@ -66,18 +70,14 @@ def load_inputs(input_type: str, paths: Sequence[str], *, num_points: int = 4096
     return samples
 
 
-def _fence(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class InferencePipeline:
     """Runs batches through the three phases; batches are padded up to
     ``batch_size`` with copies of their last sample."""
 
     def __init__(self, model: ma.MeshAnything, cfg: MeshAnythingConfig, *,
                  batch_size: int = 1, bucket: int = 512, attn: str = "auto",
-                 lookahead: "int | str" = 0, wq: bool = False):
+                 lookahead: "int | str" = 0, wq: bool = False,
+                 timer: PhaseTimer | None = None):
         if not (lookahead == "adaptive" or (isinstance(lookahead, int) and lookahead >= 0)):
             raise ValueError(f"lookahead must be a window width or 'adaptive', not {lookahead!r}")
         self.model = model
@@ -90,7 +90,9 @@ class InferencePipeline:
         opt_mod.check_wq(self.attn, wq)
         self.lookahead = lookahead
         self.wq = wq
+        self.timer = timer
         self.device = next(model.parameters()).device
+        self.param_bytes = param_tree_bytes(model)
 
     def _decode_lookahead(self, cond: torch.Tensor, sampling: bool,
                           generator: torch.Generator | None) -> dict:
@@ -131,13 +133,25 @@ class InferencePipeline:
     def generate(self, pc_normal: torch.Tensor, *, sampling: bool = False,
                  generator: torch.Generator | None = None) -> dict:
         """One padded batch -> coords, raw tokens, decode steps and the
-        seconds of each phase (fenced on the device)."""
+        seconds of each phase (fenced on the device). On a card the batch
+        is first held against the card's memory."""
         cfg, m = self.cfg, self.model
+        if self.device.type == "cuda":
+            window = ADAPTIVE_WINDOWS[1] if self.lookahead == "adaptive" else self.lookahead
+            check_memory_budget(cfg, pc_normal.shape[0], self.bucket, self.attn,
+                                param_bytes=self.param_bytes, extra_tokens=window, wq=self.wq,
+                                device=self.device)
         times = {}
+
+        def done(name: str, t0: float) -> None:
+            fence(self.device)
+            times[f"{name}_s"] = time.perf_counter() - t0
+            if self.timer is not None:
+                self.timer.record(name, times[f"{name}_s"])
+
         t0 = time.perf_counter()
         point_feature, cond = ma.encode(m, cfg, pc_normal)
-        _fence(self.device)
-        times["encode_s"] = time.perf_counter() - t0
+        done("encode", t0)
 
         t0 = time.perf_counter()
         if self.lookahead:
@@ -149,13 +163,12 @@ class InferencePipeline:
             state = opt_mod.decode_loop(m.opt, cfg.opt, state, max_new_tokens=cfg.generate_length,
                                         wq=self.wq, sampling=sampling)
             out = {"tokens": state.tokens, "decode_steps": state.step - 1}
-        _fence(self.device)
-        times["decode_s"] = time.perf_counter() - t0
+            del state               # the cache goes before detok allocates
+        done("decode", t0)
 
         t0 = time.perf_counter()
         coords = ma.detokenize(m, cfg, out["tokens"], point_feature)
-        _fence(self.device)
-        times["detok_s"] = time.perf_counter() - t0
+        done("detok", t0)
         return {"coords": coords, **out, **times}
 
     def run(self, samples: Iterable[Sample], out_dir: str, *, sampling: bool = False,
