@@ -94,19 +94,20 @@ def _speculative_accept(generator: Optional[torch.Generator], logits: torch.Tens
 
 
 def _window_attention(state: LookaheadState, layer_idx: int, q: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor, write_start: torch.Tensor):
+                      v: torch.Tensor, base: torch.Tensor):
     """K4 over the confirmed rows plus the window tile -> (o (B, W, H, D),
-    the rows to append: K, V[, K scales, V scales])."""
+    the rows to append: K, V[, K scales, V scales]). ``base`` is the
+    forward's write_start as int32."""
     if state.attn in QUANTIZED:
         qrows = quantize_rows_for(state.attn)
         values, scales = state.kv
         (kq, ks), (vq, vs) = qrows(k), qrows(v)           # (B, W, packed), (B, W, 1)
-        o = decode_attention_mq(q, values, scales, layer_idx, write_start, kq, vq,
+        o = decode_attention_mq(q, values, scales, layer_idx, base, kq, vq,
                                 ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous())
         return o, (kq, vq, ks[..., 0], vs[..., 0])
     kd = k.to(state.kv.dtype).contiguous()
     vd = v.to(state.kv.dtype).contiguous()
-    return decode_attention_mq(q, state.kv, None, layer_idx, write_start, kd, vd), (kd, vd)
+    return decode_attention_mq(q, state.kv, None, layer_idx, base, kd, vd), (kd, vd)
 
 
 def _append_window(state: LookaheadState, rows: list, write_start: torch.Tensor) -> None:
@@ -141,13 +142,14 @@ def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
     x = x + p.cond_embed[1].to(dtype)
     x = x + p.embed_positions[cfg.cond_length + gen_idx + cfg.pos_offset].to(dtype)
     write_start = cfg.cond_length + state.steps - 1                    # (B,)
+    base = write_start.to(torch.int32)          # once a forward, for the 24 calls of K4
 
     rows = []
     for layer_idx, layer in enumerate(p.layers):
         mats = layer if wq_layers is None else wq_layers[layer_idx]
         q, k, v = lin_e(x, mats.qkv).chunk(3, dim=-1)                  # (B, W, d)
         o, appended = _window_attention(state, layer_idx, q.reshape(b, w, h, hd).contiguous(),
-                                        k, v, write_start)
+                                        k, v, base)
         rows.append(appended)
         x = layer.after_attention(x, o.reshape(b, w, d_model), mats, lin_e)
     _append_window(state, rows, write_start)

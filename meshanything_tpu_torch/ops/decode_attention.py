@@ -7,7 +7,13 @@ plain PyTorch version beside it.
   K3 ``decode_attention_int4``: single query over an int4 plane cache;
   K4 ``decode_attention_mq``: W window queries per row over the confirmed
      rows of any of the four caches plus the window rows as one causal
-     tile (K2-K4: ``csrc/decode_attention_fast.cu``).
+     tile: ``csrc/decode_attention_window.cu`` (tensor cores) for a bf16
+     cache at head width 64, ``csrc/decode_attention_fast.cu`` (with K2
+     and K3) for every other cache (``mq_kernel_for``).
+
+K1 and the bf16 K4 stream whole cache rows through the ring of
+``csrc/row_stream.cuh`` and fold their partials in the same launch
+(``csrc/split_fold.cuh``): one launch a call.
 
 They port the TPU kernels of ``meshanything_tpu/ops/decode_attention.py``
 (K1-K3 ``_flash_decode_pipelined_kernel``, K4 ``_flash_decode_kernel``
@@ -29,6 +35,7 @@ they are rounded to bf16 before P.V, which accumulates in f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -41,9 +48,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CACHE_FORMATS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int32: 3}
 _HEAD_DIMS = (8, 64)               # instantiated in both CUDA sources
 _MAX_WINDOW = 16                   # K4 is instantiated for W <= 16
-_TILE = 128                         # cache rows per tile of the split kernel
-_BLOCKS_PER_SM = 4                  # split target: this many blocks per SM
-_FAST_BLOCKS_PER_SM = 2             # K2-K4: larger blocks, fewer per SM
+_TILE = 128                         # K2-K4 (csrc/decode_attention_fast.cu): rows per split unit
+_FAST_BLOCKS_PER_SM = 2             # K2-K4: this many blocks per SM
+K1_TILE = {torch.float32: 8, torch.bfloat16: 16}   # rows a tile of K1's ring, by dtype
+WINDOW_TILE = 16                    # rows a tile of the bf16 K4's ring
+_MAX_HEADS = 16                     # K1 and the bf16 K4: one warp a head
+_FOLD_COUNTERS = 65536              # int32 ticket counters a workspace: B * (1 + groups) of a call
 
 
 def _check(q: torch.Tensor, kv_cache: torch.Tensor, layer: int, cur_len: int) -> None:
@@ -87,7 +97,7 @@ def _kernel():
     lib = _build.load("decode_attention")
     fn = lib.lib.mt_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_int64] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_int64] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.lib.mt_error_string.argtypes = [ctypes.c_int]
@@ -95,15 +105,114 @@ def _kernel():
     return lib.lib
 
 
-def split_plan(batch: int, heads: int, cur_len: int, num_sms: int) -> tuple[int, int]:
-    """(rows_per_split, nsplit) for the flash-decoding grid (B*H, nsplit):
-    enough blocks to give every SM ``_BLOCKS_PER_SM``, whole tiles per
-    split, and no empty split."""
-    tiles = -(-cur_len // _TILE)
-    want = -(-_BLOCKS_PER_SM * num_sms // (batch * heads))
-    nsplit = max(1, min(tiles, want))
-    rows_per_split = -(-tiles // nsplit) * _TILE
-    return rows_per_split, -(-cur_len // rows_per_split)
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream_ptr(device: torch.device) -> int:
+    """The current stream of ``device`` as the integer the C interface takes."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+class FoldWorkspace:
+    """What the folded combine (``csrc/split_fold.cuh``) needs between and
+    across calls: the ticket counters, zeros that every launch leaves at
+    zero, and one f32 buffer for the splits' partials, grown to the
+    largest call so far. One a (device, stream), made at the first call
+    there and shared by K1, the bf16 K4 and T4, so that a call allocates
+    only its output: the calls of one stream run in order (a kernel's
+    partials are dead when the next kernel starts), and two streams never
+    share counters or partials. A CUDA graph is captured on a stream that
+    has made its workspace (warm up on the capture stream); its replays
+    use that stream's workspace wherever they are enqueued, so they must
+    not run beside other work of the stream they were captured on. A
+    launch that fails is refused before it runs and leaves the counters
+    at zero."""
+
+    def __init__(self, device: torch.device):
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the first call on a stream makes its fold counters: make it "
+                               "outside a CUDA-graph capture (warm up on the capture stream)")
+        self.device = device
+        self.counters = torch.zeros(_FOLD_COUNTERS, dtype=torch.int32, device=device)
+        self.partials = torch.empty(1 << 20, dtype=torch.float32, device=device)
+        self._outgrown: list = []    # kept: a captured CUDA graph may still write to them
+
+    def pointers(self, batch: int, nsplit: int, group: int, rows: int, d: int):
+        """(o_part, ml_part, counters) device pointers for a call with
+        ``nsplit`` splits folded in groups of ``group`` over ``rows`` x d
+        outputs a batch row: o_part (B, nsplit + ngroups, rows, d) f32,
+        then ml_part (B, nsplit + ngroups, rows, 2)."""
+        ngroups = -(-nsplit // group)
+        if batch * (1 + ngroups) > self.counters.numel():
+            raise ValueError(f"batch {batch} in {ngroups} fold groups needs more counters than "
+                             f"{self.counters.numel()}")
+        n_o = batch * (nsplit + ngroups) * rows * d
+        need = n_o + batch * (nsplit + ngroups) * rows * 2
+        if need > self.partials.numel():
+            self._outgrown.append(self.partials)
+            self.partials = torch.empty(1 << (need - 1).bit_length(), dtype=torch.float32,
+                                        device=self.device)
+        base = self.partials.data_ptr()
+        return base, base + 4 * n_o, self.counters.data_ptr()
+
+
+_workspaces: dict = {}
+
+
+def fold_workspace(device: torch.device, stream: int) -> FoldWorkspace:
+    """The ``FoldWorkspace`` of ``stream`` (its raw pointer, as
+    ``_stream_ptr`` gives it) on ``device``, made at the first call."""
+    ws = _workspaces.get((device.index, stream))
+    if ws is None:
+        ws = _workspaces[(device.index, stream)] = FoldWorkspace(device)
+    return ws
+
+
+def fold_group(nsplit: int) -> int:
+    """Splits a group of the two-level fold: every split in one group up
+    to 24 splits (two batches of the fold's loads), about sqrt(nsplit)
+    beyond (132 splits: 11 groups of 12, one batch a level)."""
+    return nsplit if nsplit <= 24 else math.isqrt(nsplit - 1) + 1
+
+
+def split_bounds(n_rows: int, tile: int, nsplit: int) -> list[tuple[int, int]]:
+    """The rows [row0, row1) of each of ``nsplit`` splits of ``n_rows``
+    rows, as the kernels cut them: whole tiles, balanced to within one
+    tile; a split is empty only where there are fewer tiles than splits."""
+    tiles = -(-n_rows // tile)
+    return [(s * tiles // nsplit * tile, min(n_rows, (s + 1) * tiles // nsplit * tile))
+            for s in range(nsplit)]
+
+
+def split_plan(batch: int, cur_len: int, num_sms: int, tile: int) -> tuple[int, int]:
+    """(nsplit, group) of K1's grid (B, nsplit): about one block an SM
+    over ``batch * nsplit`` and never more (a block holds most of an SM's
+    shared memory), at most one split a tile so that no split is empty
+    (``split_bounds``); folded in groups of ``group`` splits."""
+    tiles = -(-cur_len // tile)
+    nsplit = max(1, min(tiles, num_sms // batch))
+    return nsplit, fold_group(nsplit)
+
+
+def window_split_plan(batch: int, n_rows: int, num_sms: int) -> tuple[int, int]:
+    """(nsplit_cache, group) of the bf16 K4's grid (B, nsplit_cache + 1):
+    splits of the ``n_rows`` cache rows a base can reach (S - W) plus the
+    window tile's block, about one block an SM. On the card a block takes
+    its share of the tiles below base[b], so the grid needs no read of
+    ``base``. The window's block is short: with many splits a row (small
+    batch) it takes one of the row's blocks, with few it rides behind
+    them. ``group`` counts the window's split too."""
+    tiles = -(-n_rows // WINDOW_TILE)
+    budget = max(1, num_sms // batch)
+    nsplit = max(1, min(tiles, budget - 1 if budget >= 16 else budget))
+    return nsplit, fold_group(nsplit + 1)
 
 
 def decode_attention(q: torch.Tensor, kv_cache: torch.Tensor,
@@ -120,22 +229,21 @@ def decode_attention(q: torch.Tensor, kv_cache: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda tensors, not {q.device}")
     b, h, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not built; the kernel takes {_HEAD_DIMS}")
+    if d not in _HEAD_DIMS or h > _MAX_HEADS:
+        raise ValueError(f"head_dim {d} with {h} heads not built; the kernel takes head_dim "
+                         f"{_HEAD_DIMS} and at most {_MAX_HEADS} heads")
     if q.data_ptr() % 16 or kv_cache.data_ptr() % 16:
         raise ValueError("q and kv_cache must be 16-byte aligned")
     lib = _kernel()
     _, n_layers, _, s, _ = kv_cache.shape
-    rows_per_split, nsplit = split_plan(
-        b, h, cur_len, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    nsplit, group = split_plan(b, cur_len, _num_sms(q.device.index), K1_TILE[q.dtype])
+    stream = _stream_ptr(q.device)
+    o_part, ml_part, counters = fold_workspace(q.device, stream).pointers(b, nsplit, group, h, d)
     out = torch.empty_like(q)
-    o_part = torch.empty((b * h * nsplit, d), dtype=torch.float32, device=q.device)
-    ml_part = torch.empty((b * h * nsplit, 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.mt_decode_attention(
-            q.data_ptr(), kv_cache.data_ptr(), out.data_ptr(), o_part.data_ptr(),
-            ml_part.data_ptr(), _DTYPE_CODES[q.dtype], b, h, d, n_layers, s, layer,
-            cur_len, rows_per_split, nsplit, torch.cuda.current_stream(q.device).cuda_stream)
+            q.data_ptr(), kv_cache.data_ptr(), out.data_ptr(), o_part, ml_part, counters,
+            _DTYPE_CODES[q.dtype], b, h, d, n_layers, s, layer, cur_len, nsplit, group, stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"{lib.mt_error_string(err).decode()} (cudaError {err})")
@@ -160,12 +268,17 @@ def cache_rows_f32(values: torch.Tensor) -> torch.Tensor:
 
 def _attend_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ks: Optional[torch.Tensor], vs: Optional[torch.Tensor],
-                      mask: torch.Tensor) -> torch.Tensor:
+                      mask: torch.Tensor, p_terms: Optional[int] = None) -> torch.Tensor:
     """The plain math of K2-K4. q (B, W, H, D); k, v (B, N, H*D) f32
     rows; ks, vs (B, N) f32 scales or None; mask (B, W, N) bool (every
     query sees at least one row). Rows no query sees are never read, so
     NaN there does not reach the output. Returns (B, W, H, D) in q's
-    dtype."""
+    dtype.
+
+    ``p_terms`` emulates the tensor-core K4, which feeds P to its P.V
+    product as that many bf16 terms (p0 = bf16(p), p1 = bf16(p - p0), ..),
+    each product exact in f32: P is replaced by the sum of its terms. The
+    running sum is still built from the f32 P."""
     b, w, h, d = q.shape
     n = k.shape[1]
     seen = mask.any(dim=1)                                       # (B, N)
@@ -181,6 +294,11 @@ def _attend_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = p * torch.where(seen, vs, 0.0)[:, None, None, :]
         if q.dtype != torch.float32:     # the quantized tiers' bf16 P
             p = p.to(q.dtype).float()
+    if p_terms is not None:
+        rest, p = p, torch.zeros_like(p)
+        for _ in range(p_terms):
+            term = rest.bfloat16().float()
+            p, rest = p + term, rest - term
     acc = torch.einsum("bwhn,bnhd->bwhd", p, v)
     return (acc / l_sum.clamp_min(1e-30)).to(q.dtype)
 
@@ -273,8 +391,7 @@ def _decode_attention_quant(q, values, scales, layer, cur_len, *, fmt, name, cou
     _cuda_preflight(name, (q, values, scales), d)
     lib = _fast_kernel()
     _, n_layers, _, s, _ = values.shape
-    rows_per_split, nsplit = fast_split_plan(
-        b, cur_len, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    rows_per_split, nsplit = fast_split_plan(b, cur_len, _num_sms(q.device.index))
     out = torch.empty_like(q)
     o_part = torch.empty((b * h * nsplit, d), dtype=torch.float32, device=q.device)
     ml_part = torch.empty((b * h * nsplit, 2), dtype=torch.float32, device=q.device)
@@ -361,10 +478,12 @@ def decode_attention_mq_reference(q: torch.Tensor, kv: torch.Tensor,
                                   base: torch.Tensor, win_k: torch.Tensor, win_v: torch.Tensor,
                                   win_ks: Optional[torch.Tensor] = None,
                                   win_vs: Optional[torch.Tensor] = None,
-                                  n_rows: Optional[int] = None) -> torch.Tensor:
+                                  n_rows: Optional[int] = None,
+                                  p_terms: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of K4 (see ``decode_attention_mq``).
     ``n_rows`` (>= max(base), default max(base)) bounds the cache rows it
-    slices; given, it spares the host a read of ``base``."""
+    slices; given, it spares the host a read of ``base``. ``p_terms``: see
+    ``_attend_reference``."""
     b, w = q.shape[:2]
     n = int(base.max()) if n_rows is None else n_rows
     k = torch.cat([cache_rows_f32(kv[0, layer, :, :n]), cache_rows_f32(win_k)], dim=1)
@@ -376,7 +495,31 @@ def decode_attention_mq_reference(q: torch.Tensor, kv: torch.Tensor,
     if scales is not None:
         ks = torch.cat([scales[0, layer, :, 0, :n], win_ks[:, 0]], dim=1)
         vs = torch.cat([scales[1, layer, :, 0, :n], win_vs[:, 0]], dim=1)
-    return _attend_reference(q, k, v, ks, vs, mask)
+    return _attend_reference(q, k, v, ks, vs, mask, p_terms)
+
+
+def mq_kernel_for(cache_dtype: torch.dtype, head_dim: int) -> str:
+    """Which of K4's two kernels takes a cache of ``cache_dtype`` at
+    ``head_dim``: ``"window"`` (``csrc/decode_attention_window.cu``: bf16
+    at head width 64, on tensor cores) or ``"tile_split"``
+    (``csrc/decode_attention_fast.cu``: every other cache format and the
+    small config's head width). Raises on what neither is built for."""
+    if cache_dtype not in _CACHE_FORMATS:
+        raise TypeError(f"cache dtype {cache_dtype} is none of {list(_CACHE_FORMATS)}")
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} not built; the kernels take {_HEAD_DIMS}")
+    return "window" if cache_dtype == torch.bfloat16 and head_dim == 64 else "tile_split"
+
+
+def _window_kernel():
+    lib = _build.load("decode_attention_window").lib
+    if lib.mt_decode_attention_window.argtypes is None:
+        lib.mt_decode_attention_window.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 9
+                                                   + [ctypes.c_void_p])
+        lib.mt_decode_attention_window.restype = ctypes.c_int
+        lib.mt_window_error_string.argtypes = [ctypes.c_int]
+        lib.mt_window_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def decode_attention_mq(q: torch.Tensor, kv: torch.Tensor, scales: Optional[torch.Tensor],
@@ -389,11 +532,11 @@ def decode_attention_mq(q: torch.Tensor, kv: torch.Tensor, scales: Optional[torc
 
     kv: (2, L, B, S, H*D) float32/bfloat16 of q's dtype (``scales`` None),
     int8 codes, or (2, L, B, S, H*D/8) int32 int4 plane words, with
-    ``scales`` (2, L, B, 1, S) f32. base: (B,) int with base[b] + W <= S.
-    win_k, win_v: (B, W, packed) in the cache's dtype; win_ks, win_vs
-    (B, 1, W) f32 for the quantized caches. Returns (B, W, H, D) in q's
-    dtype. On the card base[b] stays on the device; rows past S are never
-    read."""
+    ``scales`` (2, L, B, 1, S) f32. base: (B,) int with base[b] + W <= S
+    (int32 spares the card a conversion a call). win_k, win_v:
+    (B, W, packed) in the cache's dtype; win_ks, win_vs (B, 1, W) f32 for
+    the quantized caches. Returns (B, W, H, D) in q's dtype. On the card
+    base[b] stays on the device; rows past S are never read."""
     layer = int(layer)
     _check_mq(q, kv, scales, layer, base, win_k, win_v, win_ks, win_vs)
     if q.device.type == "cpu":
@@ -402,15 +545,34 @@ def decode_attention_mq(q: torch.Tensor, kv: torch.Tensor, scales: Optional[torc
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_mq runs on cpu or cuda tensors, not {q.device}")
     b, w, h, d = q.shape
-    base32 = base.to(torch.int32)
+    kernel = mq_kernel_for(kv.dtype, d)
+    base32 = base if base.dtype == torch.int32 else base.to(torch.int32)
     tensors = [t for t in (q, kv, scales, base32, win_k, win_v, win_ks, win_vs) if t is not None]
     _cuda_preflight("decode_attention_mq", tensors, d)
-    lib = _fast_kernel()
     _, n_layers, _, s, _ = kv.shape
-    rows_per_split, nsplit = fast_split_plan(
-        b, s, torch.cuda.get_device_properties(q.device).multi_processor_count)
-    parts = b * w * h * (nsplit + 1)
     out = torch.empty_like(q)
+    stream = _stream_ptr(q.device)
+    if kernel == "window":
+        if h > _MAX_HEADS:
+            raise ValueError(f"{h} heads: the bf16 window kernel takes at most {_MAX_HEADS}")
+        lib = _window_kernel()
+        nsplit, group = window_split_plan(b, max(1, s - w), _num_sms(q.device.index))
+        o_part, ml_part, counters = fold_workspace(q.device, stream).pointers(
+            b, nsplit + 1, group, w * h, d)
+        with torch.cuda.device(q.device):
+            err = lib.mt_decode_attention_window(
+                q.data_ptr(), kv.data_ptr(), base32.data_ptr(), win_k.data_ptr(),
+                win_v.data_ptr(), out.data_ptr(), o_part, ml_part, counters, b, w, h, d,
+                n_layers, s, layer, nsplit, group, stream)
+        if err:
+            raise RuntimeError(f"decode_attention_mq kernel launch failed: "
+                               f"{lib.mt_window_error_string(err).decode()} (cudaError {err})")
+        decode_attention_mq.launches += 1
+        decode_attention_mq.window_launches += 1
+        return out
+    lib = _fast_kernel()
+    rows_per_split, nsplit = fast_split_plan(b, s, _num_sms(q.device.index))
+    parts = b * w * h * (nsplit + 1)
     o_part = torch.empty((parts, d), dtype=torch.float32, device=q.device)
     ml_part = torch.empty((parts, 2), dtype=torch.float32, device=q.device)
 
@@ -422,11 +584,11 @@ def decode_attention_mq(q: torch.Tensor, kv: torch.Tensor, scales: Optional[torc
             q.data_ptr(), kv.data_ptr(), ptr(scales), base32.data_ptr(), win_k.data_ptr(),
             win_v.data_ptr(), ptr(win_ks), ptr(win_vs), out.data_ptr(), o_part.data_ptr(),
             ml_part.data_ptr(), _CACHE_FORMATS[kv.dtype], _DTYPE_CODES[q.dtype], b, w, h, d,
-            n_layers, s, layer, rows_per_split, nsplit,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            n_layers, s, layer, rows_per_split, nsplit, stream)
     _raise_on(lib, err, "decode_attention_mq")
     decode_attention_mq.launches += 1
     return out
 
 
-decode_attention_mq.launches = 0
+decode_attention_mq.launches = 0            # of either kernel
+decode_attention_mq.window_launches = 0     # of them, the bf16 tensor-core kernel's

@@ -58,7 +58,7 @@ def time_loop(run: Callable[[], object], iters: int, device: torch.device, *,
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         replay = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(replay):
+        with torch.cuda.graph(replay, stream=side):   # the stream that warmed up
             for _ in range(iters):
                 run()
         replay.replay()

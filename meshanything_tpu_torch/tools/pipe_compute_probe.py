@@ -7,12 +7,14 @@ them live, bf16), 800 calls cycling over the layers so that every call
 streams its rows from device memory:
 
   full        K1 itself (asserted bit-equal to ``decode_attention`` first)
-  tap         rows loaded, nothing computed
+  tap         rows streamed, nothing computed
   qk          + the QK dot and each tile's max
   softmax     + the online softmax on constant logits (no dot, no P.V)
   pv          + the P.V product on constant logits (no dot)
-  no_combine  full without the combine pass
+  no_combine  full without the fold of the partials
   one_split   full without the context split
+  depth1      full through a ring of one slot (no copy in flight while
+              the block computes)
 
     python -m meshanything_tpu_torch.tools.pipe_compute_probe [modes...]
                                                [--batch 16] [--device cpu]
@@ -56,7 +58,8 @@ def main(argv=None) -> int:
     card = first["card"]
     print(json.dumps(first), flush=True)
     if device.type == "cuda":
-        batch, heads, dim, layers, seq, cur, chunk = args.batch or 16, 16, 64, 24, 7680, 7168, K1_TILE
+        batch, heads, dim, layers, seq, cur = args.batch or 16, 16, 64, 24, 7680, 7168
+        chunk = K1_TILE[torch.bfloat16]
         calls = N_CALLS
     else:
         batch, heads, dim, layers, seq, cur, chunk = args.batch or 2, 4, 8, 2, 64, 48, 16

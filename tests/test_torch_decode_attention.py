@@ -13,7 +13,12 @@ from meshanything_tpu.ops.decode_attention import (
 )
 from meshanything_tpu_torch.ops.decode_attention import (
     decode_attention,
+    K1_TILE,
+    FoldWorkspace,
+    fold_workspace,
     decode_attention_reference,
+    fold_group,
+    split_bounds,
     split_plan,
 )
 
@@ -114,14 +119,67 @@ def test_wrapper_rejects_bad_arguments(case):
         decode_attention(q, kv, layer, cur)
 
 
+@pytest.mark.parametrize("tile", sorted(K1_TILE.values()))     # 8 rows of f32, 16 of bf16
 @pytest.mark.parametrize("batch,cur_len", [(1, 1), (1, 257), (1, 7459), (16, 4000),
-                                           (16, 7459), (2, 129)])
-def test_split_plan_covers_the_live_rows(batch, cur_len):
-    """The kernel's grid: whole tiles per split, no empty split, and the
-    splits cover exactly [0, cur_len)."""
-    rows, nsplit = split_plan(batch, 16, cur_len, num_sms=132)
-    assert rows % 128 == 0 and nsplit >= 1
-    assert (nsplit - 1) * rows < cur_len <= nsplit * rows
+                                           (16, 7459), (2, 129), (1, 7680), (3, 300),
+                                           (200, 7459)])
+def test_split_plan_covers_the_live_rows(batch, cur_len, tile):
+    """The kernel's grid: splits of whole tiles, balanced to within one
+    tile, that cover exactly [0, cur_len) once with no empty split; at
+    most one block an SM (a block holds most of an SM's shared memory),
+    and at B=1 over the whole cache one block on every SM."""
+    nsplit, group = split_plan(batch, cur_len, num_sms=132, tile=tile)
+    bounds = split_bounds(cur_len, tile, nsplit)
+    assert len(bounds) == nsplit >= 1 and 1 <= group <= nsplit
+    assert bounds[0][0] == 0 and bounds[-1][1] == cur_len
+    assert all(r0 < r1 and r0 % tile == 0 for r0, r1 in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    sizes = [-(-(r1 - r0) // tile) for r0, r1 in bounds]
+    assert max(sizes) - min(sizes) <= 1
+    assert batch * nsplit <= max(132, batch)
+    if (batch, cur_len) == (1, 7680):
+        assert nsplit >= 132
+
+
+@pytest.mark.parametrize("nsplit", [1, 8, 24, 25, 66, 132, 4096])
+def test_fold_groups_cover_the_splits(nsplit):
+    """The two-level fold: groups of ``fold_group`` splits; one group while
+    two batches of the fold's loads cover every split, else about
+    sqrt(nsplit) a group and as many groups."""
+    group = fold_group(nsplit)
+    ngroups = -(-nsplit // group)
+    assert 1 <= group <= nsplit and (ngroups - 1) * group < nsplit <= ngroups * group
+    assert ngroups == 1 if nsplit <= 24 else abs(group - ngroups) <= 1
+
+
+def test_fold_workspace_layout_and_growth():
+    """The partials of a call lie in one buffer a device, o_part then
+    ml_part, 16-byte aligned; a larger call gets a larger buffer and the
+    outgrown one is kept (a captured graph may still write to it); more
+    batch rows than there are counters raise."""
+    ws = FoldWorkspace(torch.device("cpu"))
+    assert ws.counters.dtype == torch.int32 and not ws.counters.any()
+    first = ws.partials
+    o_ptr, ml_ptr, c_ptr = ws.pointers(1, 132, 12, 16, 64)
+    assert (o_ptr, c_ptr) == (first.data_ptr(), ws.counters.data_ptr())
+    assert ml_ptr - o_ptr == 4 * (132 + 11) * 16 * 64 and ml_ptr % 16 == 0
+    assert ws.partials is first
+    o_ptr, ml_ptr, _ = ws.pointers(16, 9, 9, 16 * 16, 64)     # B=16, W=16: past the first buffer
+    need = 16 * 10 * 256 * (64 + 2)
+    assert ws.partials is not first and ws.partials.numel() >= need
+    assert o_ptr == ws.partials.data_ptr() and any(t is first for t in ws._outgrown)
+    with pytest.raises(ValueError):
+        ws.pointers(ws.counters.numel(), 8, 8, 16, 64)
+
+
+def test_fold_workspace_is_one_a_device_and_stream():
+    """Two streams of one device never share counters or partials; one
+    stream gets the workspace it made at its first call."""
+    dev = torch.device("cpu")
+    first, other = fold_workspace(dev, 0x10), fold_workspace(dev, 0x20)
+    assert first is fold_workspace(dev, 0x10) and first is not other
+    assert first.counters.data_ptr() != other.counters.data_ptr()
+    assert first.partials.data_ptr() != other.partials.data_ptr()
 
 
 @pytest.mark.cuda

@@ -12,11 +12,15 @@ from meshanything_tpu.ops import decode_attention as jda
 from meshanything_tpu.ops import kvcache as jkv
 from meshanything_tpu_torch.ops import kvcache as kvc
 from meshanything_tpu_torch.ops.decode_attention import (
+    WINDOW_TILE,
     decode_attention_int4,
     decode_attention_int8,
     decode_attention_mq,
     decode_attention_mq_reference,
     decode_attention_quant_reference,
+    mq_kernel_for,
+    split_bounds,
+    window_split_plan,
 )
 
 B, H, D, S, L, CHUNK = 2, 4, 64, 256, 2, 128
@@ -171,6 +175,87 @@ def test_cpu_calls_do_not_count_as_launches():
                         torch.tensor([3, 9]), _t(win[0]), _t(win[1]))
     assert (decode_attention_int8.launches, decode_attention_int4.launches,
             decode_attention_mq.launches) == before
+
+
+@pytest.mark.parametrize("w", [1, 4, 8, 16])
+def test_k4_two_bf16_terms_of_p_keep_the_f32_contract(w):
+    """The tensor-core K4 feeds P to its P.V product as bf16 terms. On
+    bf16-valued inputs held in f32 (so that outputs stay f32), the plain
+    version with P replaced by two terms stays within 2e-5 of the JAX
+    kernel (interpret mode), whose P is f32: what two terms leave out is
+    below 2^-17 of p. One term (a bf16 P) misses that tolerance, which is
+    why the kernel takes two products."""
+    rng = np.random.default_rng(10 + w)
+    kv, _, win, _ = _window_inputs(rng, "bfloat16", w, "bfloat16")
+    q = _q(rng, (B, w, H, D), "bfloat16")
+    base = np.array([CHUNK - 1, 200], np.int32)
+    want = np.asarray(jda.decode_attention_mq_impl(
+        _j(q), _j(kv), 1, _j(base), chunk=CHUNK, interpret=True, grouped=False,
+        win_kv=(_j(win[0]), _j(win[1]))), np.float32)
+    args = (_t(q), _t(kv), None, 1, _t(base), _t(win[0]), _t(win[1]))
+    two = decode_attention_mq_reference(*args, p_terms=2).numpy()
+    one = decode_attention_mq_reference(*args, p_terms=1).numpy()
+    np.testing.assert_allclose(two, want, atol=2e-5, rtol=2e-5)
+    assert np.abs(one - want).max() > 2e-5
+    full = decode_attention_mq_reference(*args).numpy()
+    assert np.abs(two - full).max() < np.abs(one - full).max() / 50
+
+
+@pytest.mark.parametrize("batch,n_rows", [(1, 7672), (1, 7664), (1, 300), (1, 1), (2, 7672),
+                                          (16, 7672), (16, 100), (200, 7672)])
+def test_window_split_plan_covers_the_confirmed_rows(batch, n_rows):
+    """The bf16 K4's grid, sized from the rows a base can reach (S - W):
+    for any base[b] up to there the cache splits are whole tiles that
+    cover [0, base[b]) once; with base at its end no split is empty; with
+    the window's block about one block an SM, and at B=1 over the whole
+    cache one on every SM."""
+    nsplit, group = window_split_plan(batch, n_rows, num_sms=132)
+    assert nsplit >= 1 and 1 <= group <= nsplit + 1
+    assert batch * (nsplit + 1) <= max(132 + batch, 2 * batch)
+    for base in {n_rows, max(1, n_rows // 2), max(1, n_rows - 17), 1}:
+        bounds = split_bounds(base, WINDOW_TILE, nsplit)
+        live = [(r0, r1) for r0, r1 in bounds if r1 > r0]
+        assert live[0][0] == 0 and live[-1][1] == base
+        assert all(r0 % WINDOW_TILE == 0 for r0, _ in live)
+        assert all(a[1] == b[0] for a, b in zip(live, live[1:]))
+        if base == n_rows:
+            assert len(live) == nsplit
+    if (batch, n_rows) == (1, 7672):
+        assert nsplit + 1 >= 132
+
+
+@pytest.mark.parametrize("dtype,head_dim,want", [
+    (torch.bfloat16, 64, "window"), (torch.bfloat16, 8, "tile_split"),
+    (torch.float32, 64, "tile_split"), (torch.float32, 8, "tile_split"),
+    (torch.int8, 64, "tile_split"), (torch.int32, 64, "tile_split"),
+    (torch.float16, 64, TypeError), (torch.int64, 8, TypeError),
+    (torch.bfloat16, 32, ValueError), (torch.int8, 128, ValueError)])
+def test_k4_kernel_dispatch_table(dtype, head_dim, want):
+    """(cache dtype, head width) -> kernel; what neither kernel is built
+    for raises instead of trying one and falling back to the other."""
+    if isinstance(want, str):
+        assert mq_kernel_for(dtype, head_dim) == want
+    else:
+        with pytest.raises(want):
+            mq_kernel_for(dtype, head_dim)
+
+
+def test_k4_row_bound_does_not_change_the_cpu_result():
+    """The plain version's ``n_rows`` only spares it a read of ``base``:
+    any bound from max(base) up gives the same result, and the wrapper on
+    the CPU gives it too. (The card's grid is sized from the cache's
+    length: the wrapper takes no bound.)"""
+    rng = np.random.default_rng(6)
+    kv, _, win, _ = _window_inputs(rng, "float32", 4, "float32")
+    q = _t(_q(rng, (B, 4, H, D), "float32"))
+    args = (q, _t(kv), None, 1, torch.tensor([7, 150], dtype=torch.int32), _t(win[0]), _t(win[1]))
+    want = decode_attention_mq(*args)
+    for n_rows in (150, 151, S - 4, S):
+        np.testing.assert_allclose(      # masked rows add zeros: at most another summation order
+            decode_attention_mq_reference(*args, n_rows=n_rows).numpy(), want.numpy(),
+            atol=1e-6, rtol=1e-6)
+    with pytest.raises(TypeError):
+        decode_attention_mq(*args, n_rows=150)
 
 
 def _needs_card():

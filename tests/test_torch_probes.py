@@ -131,10 +131,11 @@ def _torch(x, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [CHUNK, 8])      # the card's tiles: 16 rows of bf16, 8 of f32
 @pytest.mark.parametrize("mode,cur_len", [
     ("full", 64), ("full", 41), ("full", 5), ("tap", 48), ("tap", 41), ("qk", 64), ("qk", 41),
     ("qk", 5), ("softmax", 64), ("softmax", 16), ("pv", 48), ("pv", 16)])
-def test_k1_probe_plain_matches_jax_probe(mode, cur_len, dtype):
+def test_k1_probe_plain_matches_jax_probe(mode, cur_len, chunk, dtype):
     """The plain version against ``tools/pipe_compute_probe.build`` in
     interpret mode, whose output is the H-fold inflated (B, H, H*D)
     block-diagonal form: the diagonal blocks are compared. The JAX tool
@@ -144,23 +145,23 @@ def test_k1_probe_plain_matches_jax_probe(mode, cur_len, dtype):
     q, kv = _attention_inputs(cur_len, dtype)
     jdt = getattr(jnp, dtype)
     inflated = np.asarray(jax_pipe.build(jnp.asarray(q, jdt), jnp.asarray(kv, jdt), 1, cur_len,
-                                         chunk=CHUNK, mode=mode, interpret=True), np.float32)
+                                         chunk=chunk, mode=mode, interpret=True), np.float32)
     want = np.stack([inflated[:, i, i * D:(i + 1) * D] for i in range(H)], axis=1)
-    got = kp.k1_probe_reference(_torch(q, dtype), _torch(kv, dtype), 1, cur_len, chunk=CHUNK,
+    got = kp.k1_probe_reference(_torch(q, dtype), _torch(kv, dtype), 1, cur_len, chunk=chunk,
                                 mode=mode, normalize=False)
     assert got.shape == (B, H, D) and got.dtype == getattr(torch, dtype)
     np.testing.assert_allclose(got.float().numpy(), want, atol=TOL[dtype], rtol=TOL[dtype])
     if mode != "full":      # the wrapper's CPU route is the same function
-        wrapped = kp.k1_probe(_torch(q, dtype), _torch(kv, dtype), 1, cur_len, chunk=CHUNK,
+        wrapped = kp.k1_probe(_torch(q, dtype), _torch(kv, dtype), 1, cur_len, chunk=chunk,
                               mode=mode)
         np.testing.assert_array_equal(wrapped.float().numpy(), got.float().numpy())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode", ["full", "one_split", "no_combine"])
+@pytest.mark.parametrize("mode", ["full", "one_split", "no_combine", "depth1"])
 @pytest.mark.parametrize("cur_len", [1, 17, 41, 64])
 def test_k1_probe_full_is_k1(mode, cur_len, dtype):
-    """``full`` and the two machinery cuts compute K1: against both
+    """``full`` and the three machinery cuts compute K1: against both
     packages' references, whatever the tiles and context splits."""
     q, kv = _attention_inputs(100 + cur_len, dtype)
     qt, kvt = _torch(q, dtype), _torch(kv, dtype)
@@ -168,16 +169,16 @@ def test_k1_probe_full_is_k1(mode, cur_len, dtype):
     refs = (decode_attention_reference(qt, kvt, 2, cur_len).float().numpy(),
             np.asarray(jax_decode_attention_reference(jnp.asarray(q, jdt), jnp.asarray(kv, jdt),
                                                       2, cur_len), np.float32))
-    for rows_per_split in (None, 16, 32):
-        got = kp.k1_probe_reference(qt, kvt, 2, cur_len, chunk=CHUNK, mode=mode,
-                                    rows_per_split=rows_per_split)
-        if mode == "no_combine":     # combine the partials as K1's second pass does
+    tile = kp.K1_TILE[qt.dtype]
+    for nsplit in (1, 2, 3):
+        nsplit = min(nsplit, -(-cur_len // tile))       # the plan leaves no split empty
+        got = kp.k1_probe_reference(qt, kvt, 2, cur_len, chunk=tile, mode=mode, nsplit=nsplit)
+        if mode == "no_combine":     # fold the partials as K1 does
             o_part, ml_part = got
-            nsplit = -(-cur_len // (rows_per_split or cur_len))
-            assert o_part.shape == (B, H, nsplit, D) and ml_part.shape == (B, H, nsplit, 2)
-            w = torch.exp(ml_part[..., 0] - ml_part[..., 0].amax(dim=-1, keepdim=True))
-            got = ((o_part * w[..., None]).sum(dim=2)
-                   / (ml_part[..., 1] * w).sum(dim=-1, keepdim=True)).to(qt.dtype)
+            assert o_part.shape == (B, nsplit, H, D) and ml_part.shape == (B, nsplit, H, 2)
+            w = torch.exp(ml_part[..., 0] - ml_part[..., 0].amax(dim=1, keepdim=True))
+            got = ((o_part * w[..., None]).sum(dim=1)
+                   / (ml_part[..., 1] * w).sum(dim=1)[..., None]).to(qt.dtype)
         for ref in refs:
             np.testing.assert_allclose(got.float().numpy(), ref, atol=TOL[dtype], rtol=TOL[dtype])
 
@@ -188,13 +189,12 @@ def test_k1_probe_softmax_depends_on_the_split_plan():
     q, kv = _attention_inputs(7, "float32")
     qt, kvt = torch.from_numpy(q), torch.from_numpy(kv)
 
-    def run(mode, rows_per_split):
-        return kp.k1_probe_reference(qt, kvt, 0, 64, chunk=CHUNK, mode=mode,
-                                     rows_per_split=rows_per_split)
+    def run(mode, nsplit):
+        return kp.k1_probe_reference(qt, kvt, 0, 64, chunk=CHUNK, mode=mode, nsplit=nsplit)
 
-    assert not torch.allclose(run("softmax", None), run("softmax", 32), atol=1e-3)
+    assert not torch.allclose(run("softmax", 1), run("softmax", 2), atol=1e-3)
     for mode in ("tap", "qk", "pv"):
-        torch.testing.assert_close(run(mode, None), run(mode, 32), atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(run(mode, 1), run(mode, 2), atol=1e-5, rtol=1e-5)
 
 
 def test_k1_probe_masks_rows_past_cur_len():
@@ -318,19 +318,24 @@ def test_stream_plan_fits_the_card(chunk_bytes, planes, depth, nchunks):
         probes.stream_plan(chunk_bytes + 8, planes, depth, nchunks, num_sms=132)
 
 
+@pytest.mark.parametrize("tile", [16, 8])
 @pytest.mark.parametrize("batch,cur_len", [(1, 1), (1, 257), (1, 7168), (16, 7168), (16, 7459)])
-def test_k1_probe_plan(batch, cur_len):
-    """Every mode but one_split runs K1's own grid; one_split one block
-    per (b, h) over whole tiles."""
-    from meshanything_tpu_torch.ops.decode_attention import split_plan
+def test_k1_probe_plan(batch, cur_len, tile):
+    """Every mode but one_split runs K1's own grid; one_split one block a
+    batch row. Either way the splits are whole tiles that cover the live
+    rows once, none empty."""
+    from meshanything_tpu_torch.ops.decode_attention import split_bounds, split_plan
 
     for mode in kp.MODES:
-        rows, nsplit = kp.k1_probe_plan(batch, 16, cur_len, 132, mode)
-        assert rows % kp.K1_TILE == 0 and (nsplit - 1) * rows < cur_len <= nsplit * rows
+        nsplit, group = kp.k1_probe_plan(batch, cur_len, 132, mode, tile)
+        bounds = split_bounds(cur_len, tile, nsplit)
+        assert bounds[0][0] == 0 and bounds[-1][1] == cur_len
+        assert all(r0 < r1 and r0 % tile == 0 for r0, r1 in bounds)
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
         if mode == "one_split":
-            assert nsplit == 1
+            assert (nsplit, group) == (1, 1)
         else:
-            assert (rows, nsplit) == split_plan(batch, 16, cur_len, 132)
+            assert (nsplit, group) == split_plan(batch, cur_len, 132, tile)
 
 
 @pytest.mark.parametrize("tool,argv,closing", [
@@ -363,6 +368,32 @@ def test_tools_refuse_a_missing_card():
     for tool in (build_canary, dma_wire_probe, pipe_compute_probe):
         with pytest.raises(SystemExit):
             tool.main([])
+
+
+def test_attn_compare_child_program_compiles():
+    """The comparison tool runs each tree in a process of its own from a
+    program text that times K1-K4 through the tree's own smoke phases and
+    runs the two CLI cases, and pairs the four runs' readings a kernel and
+    batch: each tree's in the order made, the ratio of their sums."""
+    from meshanything_tpu_torch.tools import attn_compare
+
+    program = attn_compare._RUN.format(root="/some/checkout")
+    compile(program, "attn_compare child", "exec")
+    for needle in ("'/some/checkout'", "cs.time_k1(", "cs.time_fast(", '"--lookahead", "8"'):
+        assert needle in program
+
+    def run(label, k1, k4):
+        rec = {"bound_ms": 0.1, "card": "card", "library_ms": 0.2 if label == "this" else None}
+        return label, {("k1", 1): {**rec, "ms": k1}, ("k4_bfloat16", 16): {**rec, "ms": k4}}
+
+    out = attn_compare.summarize([run("other", 4.0, 9.0), run("this", 1.0, 3.0),
+                                  run("this", 3.0, 3.0), run("other", 4.0, 3.0)])
+    assert [(r["kernel"], r["batch"]) for r in out] == [("k1", 1), ("k4_bfloat16", 16)]
+    assert out[0]["other_ms"] == [4.0, 4.0] and out[0]["this_ms"] == [1.0, 3.0]
+    assert out[0]["other_over_this"] == 2.0 and out[1]["other_over_this"] == 2.0
+    assert out[0]["library_ms"] == 0.2 and out[0]["card"] == "card"
+    with pytest.raises(SystemExit):
+        attn_compare.main([])          # the other tree's root is required
 
 
 def _need_card():
@@ -411,14 +442,14 @@ def test_k1_probe_kernel_on_the_card(dtype):
     q = _torch(rng.normal(size=(2, 16, 64)).astype(np.float32), dtype).cuda()
     kv = _torch((rng.normal(size=(2, 2, 2, 512, 1024)) * 0.3).astype(np.float32), dtype).cuda()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile = kp.K1_TILE[q.dtype]
     for cur_len in (1, 129, 500):
-        full = kp.k1_probe(q, kv, 1, cur_len, chunk=kp.K1_TILE, mode="full")
+        full = kp.k1_probe(q, kv, 1, cur_len, chunk=tile, mode="full")
         assert torch.equal(full, decode_attention(q, kv, 1, cur_len))
         for mode in kp.MODES[1:]:
-            rows, _ = kp.k1_probe_plan(2, 16, cur_len, sms, mode)
-            got = kp.k1_probe(q, kv, 1, cur_len, chunk=kp.K1_TILE, mode=mode)
-            want = kp.k1_probe_reference(q, kv, 1, cur_len, chunk=kp.K1_TILE, mode=mode,
-                                         rows_per_split=rows)
+            nsplit, _ = kp.k1_probe_plan(2, cur_len, sms, mode, tile)
+            got = kp.k1_probe(q, kv, 1, cur_len, chunk=tile, mode=mode)
+            want = kp.k1_probe_reference(q, kv, 1, cur_len, chunk=tile, mode=mode, nsplit=nsplit)
             for a, b in zip(*(x if isinstance(x, tuple) else (x,) for x in (got, want))):
                 torch.testing.assert_close(a.float(), b.float(), atol=TOL[dtype], rtol=TOL[dtype])
     with pytest.raises(ValueError):
