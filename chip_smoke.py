@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (meshanything_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only phase,...]
+
+With ``--only`` the device check, the canary and the builds run, then only
+the phases named (``PHASES``), and the ``kernels`` line is not printed;
+without it every phase runs.
 
 Phases, each printing JSON lines; any failure exits non-zero:
 
@@ -17,16 +21,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
      4000, 7459; f32 and bf16), with a NaN tail past cur_len and NaN in
      every other layer, which must not reach the output;
   4. K2 (int8) and K3 (int4) against their plain version at the same
-     shapes with bf16 queries: NaN scales and garbage codes past cur_len
-     and in the other 23 layers must not change the output (B=16 int8
-     crosses the 2^31-byte K->V plane stride);
-  5. K4 against its plain version over bf16, f32, int8 and int4 caches,
-     B 1 and 16, W 4, 8 and 16, base 1, 256, 4000 and 7450 (row b gets
-     base - b), random window rows, the same poisoning past base[b]; the
-     bf16 cache (the tensor-core kernel) also at W 1 and at base S - W,
-     so that a base ends inside a tile, on a tile edge, at 1 and at the
-     cache's end, and held to 1% of each head vector's largest element
-     with no absolute allowance (WINDOW_RTOL);
+     shapes with f32 queries (held at 1e-5) and bf16 queries (held to 2%
+     of each head vector's largest element, no absolute allowance:
+     QUANT_RTOL, two bf16 steps, one for P's rounding): NaN scales and garbage codes past cur_len and in the
+     other 23 layers must not change the output (B=16 int8 crosses the
+     2^31-byte K->V plane stride);
+  5. K4 against its plain version over bf16, f32, int8 and int4 caches
+     (int8 and int4 with f32 and bf16 queries, held as K2 and K3), B 1 and
+     16, W 4, 8 and 16, base 1, 256, 4000 and 7450 (row b gets base - b),
+     random window rows, the same poisoning past base[b]; the bf16 cache
+     (the tensor-core kernel) also at W 1 and at base S - W, so that a base
+     ends inside a tile, on a tile edge, at 1 and at the cache's end, and
+     held to 1% of each head vector's largest element (WINDOW_RTOL: its P
+     is not rounded);
   5a. a K1 call and a bf16 K4 call at B 1 and 16, each captured in a CUDA
      graph and replayed 20 times: every replay must equal the eager
      result bit for bit (the fold sums in split order and leaves its
@@ -41,9 +48,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
      7459, B=4 (a partly filled group of 16) at 4000 and B=24 (two groups
      of 16, the second partly filled) at 7459: x_out and the written K/V
      rows within tolerance, NaN past cur_len in every layer never reaching
-     the output, rows below write_pos unchanged; then K5, its plain
-     version and the eager 24-layer K1 layer loop of the exact tier timed
-     for the same step at B 1 and 16, cur_len 7459 and 300;
+     the output, rows below write_pos unchanged; 20 more launches of one
+     step at B 1 and 16 bit-equal to the first (the fold's split order);
+     then K5, its plain version and the eager 24-layer K1 layer loop of
+     the exact tier timed for the same step at B 1, 2, 4, 8 and 16,
+     cur_len 7459 and 300;
   7a. the measurement kernels (probe_check): T1-T3 against their plain
      versions on integer-valued random data, where the f32 sums are
      exact in any order (bf16 and int8, chunk 512 and 64, depth 2 and 4,
@@ -68,7 +77,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
      --wq (K3), and InferencePipeline(attn="megakernel") on the same two
      inputs (M1 B=1, M2 B=2 cut to 400 faces; K5); the OBJs must parse
      and each run must launch exactly its kernel, 24 times per decode step
-     or window forward (K5: once a decode step), and no other kernel;
+     or window forward (K5: once a decode step), and no other kernel, and
+     return no error record;
   9. agreement on a small input: the small config on the card (through
      the kernels) against the same weights on the CPU (plain versions),
      exact tier, fast tiers and megakernel, in f32: tokens and coordinates
@@ -108,12 +118,21 @@ TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # each head vector's largest |plain| element with no absolute allowance: room
 # for one bf16 step of any element (at most 2^-7 of it), not for two.
 WINDOW_RTOL = 1e-2
+# K2, K3 and the int8/int4 K4 with bf16 queries round P to bf16 before P.V (the
+# TPU kernels' contract), and the kernel's exp and the plain version's differ in
+# the last f32 bit, so a P element may round to the other bf16 neighbour: over
+# a few rows that moves the output by up to one more bf16 step of its vector's
+# largest element (1.06% measured on the H100 at one row and W=4). Two steps.
+# (A dropped context split moves it by 15-160%; the f32-query cases are held
+# at TOL["float32"].)
+QUANT_RTOL = 2e-2
 KERNEL_LIBS = ("decode_attention", "decode_attention_window", "decode_attention_fast",
                "megakernel", "k1_probe")
 PROBE_GIB = 4                     # T1-T3 are timed on arrays of this size
 PROBE_CUR = 7168                  # live rows T4 is timed at (the TPU tool's)
 FFN = 4096                        # the 350M model's fc1 width
 K5_TIME_LENS = (7459, 300)        # a long and a short context
+K5_TIME_BATCHES = (1, 2, 4, 8, 16)   # B 4 and 8 run partly filled groups of 16
 # (batch, cur_lens) of the K5 checks: B 1 and 2 (the M1 and M2 runs) and 16
 # are the kernel's three instances at full depth of cases; B=4 leaves 12 rows
 # of a 16-row group empty, B=24 loops over two groups
@@ -303,37 +322,51 @@ def _garble(values, gen) -> None:
         values.random_(-127, 128, generator=gen)
 
 
+def _held(out, plain, f32: bool, rtol: float = QUANT_RTOL) -> tuple[float, bool, dict]:
+    """K2, K3 and K4 against their plain version: f32 queries at
+    TOL["float32"] (the f32 instances: another summation order only), bf16
+    queries by head vector at ``rtol`` with no absolute allowance (a long
+    context's outputs are ~0.02, so a flat 1e-2 would pass a dropped
+    split)."""
+    if f32:
+        tol = TOL["float32"]
+        return (*_close(out, plain, tol), {"atol": tol, "rtol": tol})
+    return (*_close(out, plain, rtol, by_vector=True, atol=0.0),
+            {"atol": 0.0, "rtol": rtol, "rtol_of": "head vector max |plain|"})
+
+
 def check_k23(torch, da) -> dict:
-    """Phase 4; returns the largest error of K2 and K3 against the plain
-    version."""
+    """Phase 4 with f32 and bf16 queries; returns the largest error of K2
+    and K3 against the plain version."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst, failures = {}, []
-    tol = TOL["bfloat16"]
     for name, bits, fn in (("k2", 8, da.decode_attention_int8), ("k3", 4, da.decode_attention_int4)):
         worst[name] = 0.0
         for batch in (1, 16):
-            values, scales = _quantized_cache(torch, gen, bits, batch)
-            q = torch.randn((batch, H, D), generator=gen, device="cuda").bfloat16()
-            errs, oks = [], []
-            for cur in CUR_LENS:
-                out = fn(q, values, scales, LAYER, cur)
-                scales[:, LAYER, :, :, cur:] = float("nan")
-                _garble(values[:, LAYER, :, cur:], gen)
-                poisoned = fn(q, values, scales, LAYER, cur)
-                plain = da.decode_attention_quant_reference(q, values, scales, LAYER, cur)
-                torch.cuda.synchronize()
-                err, within = _close(out, plain, tol)
-                ok = within and bool(torch.isfinite(out).all()) and bool(torch.equal(out, poisoned))
-                errs.append(err)
-                oks.append(ok)
-                if not ok:
-                    failures.append((name, batch, cur))
-            worst[name] = max(worst[name], *errs)
-            emit("k23_check", kernel=name, batch=batch, dtype="bfloat16", cur_lens=list(CUR_LENS),
-                 max_abs_err=errs, atol=tol, rtol=tol, ok=oks,
-                 plane_stride_bytes=values[0].numel() * values.element_size())
-            del values, scales, q
-            torch.cuda.empty_cache()
+            for qdtype in (torch.float32, torch.bfloat16):
+                values, scales = _quantized_cache(torch, gen, bits, batch)
+                q = torch.randn((batch, H, D), generator=gen, device="cuda").to(qdtype)
+                errs, oks = [], []
+                for cur in CUR_LENS:
+                    out = fn(q, values, scales, LAYER, cur)
+                    scales[:, LAYER, :, :, cur:] = float("nan")
+                    _garble(values[:, LAYER, :, cur:], gen)
+                    poisoned = fn(q, values, scales, LAYER, cur)
+                    plain = da.decode_attention_quant_reference(q, values, scales, LAYER, cur)
+                    torch.cuda.synchronize()
+                    err, within, held = _held(out, plain, qdtype == torch.float32)
+                    ok = (within and bool(torch.isfinite(out).all())
+                          and bool(torch.equal(out, poisoned)))
+                    errs.append(err)
+                    oks.append(ok)
+                    if not ok:
+                        failures.append((name, batch, str(qdtype)[6:], cur))
+                worst[name] = max(worst[name], *errs)
+                emit("k23_check", kernel=name, batch=batch, query_dtype=str(qdtype)[6:],
+                     cur_lens=list(CUR_LENS), max_abs_err=errs, **held, ok=oks,
+                     plane_stride_bytes=values[0].numel() * values.element_size())
+                del values, scales, q
+                torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"K2/K3 disagree with their plain version or read past cur_len: "
                              f"{failures}")
@@ -359,9 +392,12 @@ def check_k4(torch, da, kinds=("bfloat16", "float32", "int8", "int4")) -> dict:
     "tile_split": ..})."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst, failures = {"window": 0.0, "tile_split": 0.0}, []
-    for kind in kinds:
-        qdtype = torch.float32 if kind == "float32" else torch.bfloat16
-        tol = TOL["float32" if kind == "float32" else "bfloat16"]
+    # (cache, query dtype): the quantized caches with f32 queries too, held at
+    # TOL["float32"]; every bf16 query by head vector (_held)
+    cases = [(kind, qd) for kind in kinds
+             for qd in ({"float32": (torch.float32,), "bfloat16": (torch.bfloat16,)}
+                        .get(kind, (torch.float32, torch.bfloat16)))]
+    for kind, qdtype in cases:
         # the tensor-core kernel also at one query and at the cache's end
         windows = (1, *WINDOWS) if kind == "bfloat16" else WINDOWS
         for batch in (1, 16):
@@ -401,10 +437,9 @@ def check_k4(torch, da, kinds=("bfloat16", "float32", "int8", "int4")) -> dict:
                     poisoned = da.decode_attention_mq(*args)
                     plain = da.decode_attention_mq_reference(*args, n_rows=base0)
                     torch.cuda.synchronize()
-                    if kernel == "window":
-                        err, within = _close(out, plain, WINDOW_RTOL, by_vector=True, atol=0.0)
-                    else:
-                        err, within = _close(out, plain, tol)
+                    err, within, held = _held(
+                        out, plain, qdtype == torch.float32,
+                        WINDOW_RTOL if kernel == "window" else QUANT_RTOL)
                     # the largest error as a share of its head vector's largest |plain|
                     rel_errs.append(((out.float() - plain.float()).abs()
                                      / plain.float().abs().amax(dim=-1, keepdim=True)).max().item())
@@ -413,10 +448,8 @@ def check_k4(torch, da, kinds=("bfloat16", "float32", "int8", "int4")) -> dict:
                     errs.append(err)
                     oks.append(ok)
                     if not ok:
-                        failures.append((kind, batch, w, base0))
+                        failures.append((kind, str(qdtype)[6:], batch, w, base0))
                 worst[kernel] = max(worst[kernel], *errs)
-                held = ({"atol": 0.0, "rtol": WINDOW_RTOL, "rtol_of": "head vector max |plain|"}
-                        if kernel == "window" else {"atol": tol, "rtol": tol})
                 emit("k4_check", cache=kind, batch=batch, window=w, query_dtype=str(qdtype)[6:],
                      kernel=kernel, bases_row0=list(bases), max_abs_err=errs,
                      max_err_over_vector_max=rel_errs, **held, ok=oks)
@@ -646,6 +679,42 @@ def check_k5(torch, mk) -> float:
     return worst
 
 
+def check_k5_replays(torch, mk, replays: int = 20) -> None:
+    """Phase 7 (replays): K5 folds its attention splits inside the launch
+    through ticket counters that persist between launches. The same step
+    at B 1 and 16, cur_len 7459, is launched ``replays`` more times: every
+    output must equal the first bit for bit (the fold sums in split
+    order), and so must the K/V rows it writes."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    packed = _random_packed(torch, mk, gen)
+    failures = []
+    for batch in (1, 16):
+        kv = torch.randn((2, L, batch, S, H * D), generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        x = torch.randn((batch, H * D), generator=gen, device="cuda").bfloat16()
+        cur = 7459
+
+        def step():
+            return mk.decode_step_megakernel(x, packed, kv, cur - 1, cur, num_heads=H)
+
+        want = step()
+        rows = kv[:, :, :, cur - 1].clone()
+        same = []
+        for _ in range(replays):
+            out = step()
+            torch.cuda.synchronize()
+            same.append(bool(torch.equal(out, want)) and bool(torch.equal(kv[:, :, :, cur - 1],
+                                                                          rows)))
+        emit("k5_replay", batch=batch, cur_len=cur, replays=replays, bit_equal=sum(same),
+             ok=all(same))
+        if not all(same):
+            failures.append(batch)
+        del kv, x
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"K5 launches of one step differ: batches {failures}")
+
+
 def time_k5(torch, mk, da, card: str) -> dict:
     """Phase 7 (times): one decode step's layer stack on seeded random bf16
     layers and a bf16 cache, as K5, as its plain version, and as the
@@ -665,7 +734,7 @@ def time_k5(torch, mk, da, card: str) -> dict:
     weight_bytes = sum(t.numel() * t.element_size() for t in packed.tensors())
     gen = torch.Generator(device="cuda").manual_seed(7)
     times = {}
-    for batch in (1, 16):
+    for batch in K5_TIME_BATCHES:
         kv = torch.randn((2, L, batch, S, H * D), generator=gen, device="cuda",
                          dtype=torch.bfloat16)
         x = torch.randn((batch, H * D), generator=gen, device="cuda").bfloat16()
@@ -1214,6 +1283,11 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
     peak = max(peaks[1:]) - base
     if len(results) != expect:
         raise AssertionError(f"{name}: {len(results)} results, expected {expect}")
+    # the pipeline records a batch that raised (after its retries) and goes on: here any
+    # such record fails the phase, and a retried batch fails the exact launch count below
+    failed = [r for r in results if "error" in r]
+    if failed:
+        raise AssertionError(f"{name}: generation failed: {failed}")
     batches = {r["batch"]: r for r in results}
     steps = sum(r["decode_steps"] for r in batches.values())
     units = (sum(r["window_forwards"] for r in batches.values()) if kernel == "k4" else steps)
@@ -1300,9 +1374,32 @@ def small_input_agreement(torch) -> None:
         raise AssertionError(f"the card and the CPU disagree on the small config: {failures}")
 
 
-def main() -> int:
+PHASES = ("k4_check", "k1_check", "k23_check", "graph_replay", "k1_time", "fast_time",
+          "k5_check", "k5_replay", "k5_time", "probe_check", "probe_time", "measurement_path",
+          "main_path", "agreement", "floor")
+
+
+def parse_only(argv: list) -> set:
+    """``--only a,b`` -> the phases to run (the device check, the canary
+    and the builds always run); no argument: every phase, and the
+    ``kernels`` line, which needs them all."""
+    if not argv:
+        return set(PHASES)
+    if len(argv) != 2 or argv[0] != "--only":
+        raise SystemExit(f"usage: chip_smoke.py [--only phase,...]; phases: {', '.join(PHASES)}")
+    only = set(argv[1].split(","))
+    unknown = only - set(PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}; phases: {', '.join(PHASES)}")
+    if "floor" in only and not {"main_path", "probe_time"} <= only:
+        raise SystemExit("floor needs main_path and probe_time")
+    return only
+
+
+def main(argv=None) -> int:
     import torch
 
+    only = parse_only(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
               file=sys.stderr)
@@ -1334,25 +1431,62 @@ def main() -> int:
         emit("build", kernel=name, built=lib.built, seconds=lib.seconds,
              ptxas=[ln for ln in lib.log.splitlines() if "registers" in ln or "spill" in ln])
 
-    k4_worst = check_k4(torch, da)
-    worst = {"k1": check_k1(torch, da), **check_k23(torch, da), "k4": k4_worst["tile_split"],
-             "k4_window": k4_worst["window"]}
-    check_graph_replays(torch, da)
-    times = {"k1": time_k1(torch, da, card), **time_fast(torch, da, card)}
-    worst["k5"] = check_k5(torch, mk)
-    k5_times = time_k5(torch, mk, da, card)
-    worst.update(check_streams(torch, pr), t4=check_k1_probe(torch, kp, da))
-    probe_times, roof_gbs = time_streams(torch, pr, card)
-    probe_times.update(t4=time_k1_probe(torch, kp, da, card), t5=time_canary(torch, pr, card))
-    worst["t5"] = max(first["max_abs_err"],
-                      *(t["max_abs_err"] for t in probe_times["t5"].values()))
+    worst, times, probe_times = {}, {}, {}
+    if "k4_check" in only:
+        k4_worst = check_k4(torch, da)
+        worst.update(k4=k4_worst["tile_split"], k4_window=k4_worst["window"])
+    if "k1_check" in only:
+        worst["k1"] = check_k1(torch, da)
+    if "k23_check" in only:
+        worst.update(check_k23(torch, da))
+    if "graph_replay" in only:
+        check_graph_replays(torch, da)
+    if "k1_time" in only:
+        times["k1"] = time_k1(torch, da, card)
+    if "fast_time" in only:
+        times.update(time_fast(torch, da, card))
+    if "k5_check" in only:
+        worst["k5"] = check_k5(torch, mk)
+    if "k5_replay" in only:
+        check_k5_replays(torch, mk)
+    if "k5_time" in only:
+        times["k5"] = time_k5(torch, mk, da, card)
+    if "probe_check" in only:
+        worst.update(check_streams(torch, pr), t4=check_k1_probe(torch, kp, da))
+    roof_gbs = None
+    if "probe_time" in only:
+        probe_times, roof_gbs = time_streams(torch, pr, card)
+        probe_times.update(t4=time_k1_probe(torch, kp, da, card), t5=time_canary(torch, pr, card))
+        worst["t5"] = max(first["max_abs_err"],
+                          *(t["max_abs_err"] for t in probe_times["t5"].values()))
 
     wrappers = {"k1": da.decode_attention, "k2": da.decode_attention_int8,
                 "k3": da.decode_attention_int4, "k4": da.decode_attention_mq,
                 "k5": mk.decode_step_megakernel, "t1": pr.stream, "t2": pr.stream_rot,
                 "t3": pr.dual_stream, "t4": kp.k1_probe, "t5": pr.scale_shift}
-    probe_launches = drive_measurement_path(torch, wrappers)
+    if "measurement_path" in only:
+        probe_launches = drive_measurement_path(torch, wrappers)
+    runs = []
+    if "main_path" in only:
+        runs = drive_main_path(torch, wrappers, cli, load_obj)
+    if "agreement" in only:
+        small_input_agreement(torch)
+    if "floor" in only:
+        floors_and_budget(torch, runs, roof_gbs, card)
 
+    if only == set(PHASES):
+        print(json.dumps(kernels_line(runs, times, probe_times, probe_launches, worst, roof_gbs)),
+              flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def drive_main_path(torch, wrappers: dict, cli, load_obj) -> list:
+    """Phase 8: the CLI runs and the pipeline runs, each through
+    ``run_main_path``; returns their records."""
     def cli_run(argv):
         return lambda: cli.main(argv)
 
@@ -1392,10 +1526,16 @@ def main() -> int:
                           argv=["InferencePipeline(attn='megakernel')", "mesh", "B=2",
                                 "n_max_triangles=400"]),
         ]
-    small_input_agreement(torch)
-    floors_and_budget(torch, runs, roof_gbs, card)
+    return runs
 
-    launches = {k: sum(r["launches"][k] for r in runs) for k in wrappers}
+
+def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dict, worst: dict,
+                 roof_gbs: float) -> dict:
+    """The ``kernels`` line: K1-K5 and T1-T5, each with its launches on the
+    main path, its largest error, its time, its plain version's, its bound,
+    the library call's time where there is one, and its share of the
+    measured roof."""
+    launches = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
     window_launches = sum(r["k4_window_launches"] for r in runs)
     src = "meshanything_tpu_torch/csrc/"
     tpu = "meshanything_tpu/ops/decode_attention.py:"
@@ -1428,14 +1568,14 @@ def main() -> int:
         "bound_by": t[1]["bound_by"], "library_ms": t[1]["library_ms"],
         "ms_b16": t[16]["ms"], "plain_ms_b16": t[16]["plain_ms"],
         "bound_ms_b16": t[16]["bound_ms"], "library_ms_b16": t[16]["library_ms"]})
-    t = k5_times
+    t = times["k5"]
     kernels.append({
         "name": "decode_step_megakernel", "route": "cuda", "source": src + "megakernel.cu",
         "replaces": "meshanything_tpu/ops/megakernel.py:86", "launches": launches["k5"],
         "max_abs_err": worst["k5"], "ms": t[(1, 7459)]["ms"], "plain_ms": t[(1, 7459)]["plain_ms"],
         "bound_ms": t[(1, 7459)]["bound_ms"], "bound_by": t[(1, 7459)]["bound_by"],
         "library_ms": None, "cur_len": 7459,
-        **{f"{field}_b{b}_len{n}": t[(b, n)][field] for b in (1, 16) for n in K5_TIME_LENS
+        **{f"{field}_b{b}_len{n}": t[(b, n)][field] for b in K5_TIME_BATCHES for n in K5_TIME_LENS
            for field in ("ms", "plain_ms", "bound_ms", "k1_loop_ms")}})
     kernels[0]["launches_measurement_path"] = probe_launches["k1"]   # bwprobe and T4's check
     kernels += probe_kernel_entries(probe_times, probe_launches, worst)
@@ -1448,13 +1588,7 @@ def main() -> int:
             if entry.get(bound_key) is not None and entry["bound_by"] == "bytes":
                 entry["share_of_roof" + key[2:]] = (entry[bound_key] * data_sheet_gbs / roof_gbs
                                                     / entry[key])
-    print(json.dumps({"kernels": kernels, "roof_gbs": roof_gbs,
-                      "data_sheet_gbs": data_sheet_gbs}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return {"kernels": kernels, "roof_gbs": roof_gbs, "data_sheet_gbs": data_sheet_gbs}
 
 
 if __name__ == "__main__":

@@ -25,10 +25,15 @@ import time
 
 def get_args(argv=None):
     parser = argparse.ArgumentParser("MeshAnything (PyTorch port)")
+    # the reference's name of the language model: accepted and recorded, as in
+    # the JAX CLI; the decoder's shape comes from the config
+    parser.add_argument("--llm", default="facebook/opt-350m", type=str)
     parser.add_argument("--input_dir", default=None, type=str)
     parser.add_argument("--input_path", default=None, type=str)
     parser.add_argument("--out_dir", default="inference_out", type=str)
     parser.add_argument("--input_type", choices=["mesh", "pc_normal"], default="pc")
+    parser.add_argument("--codebook_size", default=8192, type=int)
+    parser.add_argument("--codebook_dim", default=1024, type=int)
     parser.add_argument("--n_max_triangles", default=800, type=int)
     parser.add_argument("--batchsize_per_gpu", default=1, type=int)
     parser.add_argument("--seed", default=0, type=int)
@@ -94,9 +99,15 @@ def check_ported(args) -> None:
 
 
 def build_config(args):
-    from meshanything_tpu_torch.config import MeshAnythingConfig
+    """The config of the flags (JAX cli.py:101-112): the codebook from
+    --codebook_size / --codebook_dim, the vocabulary the codebook plus bos,
+    eos and pad."""
+    from meshanything_tpu_torch.config import MeshAnythingConfig, ShapeOPTConfig
 
-    return MeshAnythingConfig(n_max_triangles=args.n_max_triangles, dtype=args.dtype)
+    return MeshAnythingConfig(
+        opt=ShapeOPTConfig(codebook_size=args.codebook_size, codebook_dim=args.codebook_dim,
+                           vocab_size=args.codebook_size + 3),
+        n_max_triangles=args.n_max_triangles, dtype=args.dtype)
 
 
 def resolve_device(name: str):
@@ -151,7 +162,7 @@ def main(argv=None):
     print("Generation Start!!!")
     results = pipe.run(samples, out_dir, sampling=args.sampling, seed=args.seed)
     for r in results:
-        print(f"{r['obj_path']} Over!!")
+        print(f"{r.get('obj_path', r['uid'])} Over!!")
     print(f"Total time: {time.time() - begin}")
     return results
 

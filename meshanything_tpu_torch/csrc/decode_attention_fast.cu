@@ -56,6 +56,8 @@
 
 #include <type_traits>
 
+#include "row_stream.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -405,16 +407,12 @@ cudaError_t launch(const Args& a, void* out, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   const size_t bytes = static_cast<size_t>(smem_floats<F, D, WMAX>(static_cast<int>(a.H))) * 4;
   auto kernel = tile_split_kernel<F, QT, D, WMAX>;
-  // the opt-in above 48 KB, set once per instantiation at the largest
-  // size any head count asks for, so that a CUDA-graph capture after the
-  // first call sees launches only
-  static int opted_in = 0;
-  if (static_cast<int>(bytes) > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    opted_in = static_cast<int>(bytes);
-  }
+  // the opt-in above 48 KB, made once a device and instantiation at the
+  // largest size any head count asks for, so that a CUDA-graph capture
+  // after the first call on a device sees launches only
+  static int64_t opted_in[row_stream::kMaxDevices] = {};
+  const cudaError_t opt = row_stream::opt_in_smem(kernel, static_cast<int64_t>(bytes), opted_in);
+  if (opt != cudaSuccess) return opt;
   const dim3 grid(static_cast<unsigned>(a.B), static_cast<unsigned>(a.nsplit));
   kernel<<<grid, kThreads, bytes, stream>>>(a);
   combine_kernel<QT, D><<<static_cast<unsigned>(a.B * a.W * a.H), D, 0, stream>>>(

@@ -7,9 +7,12 @@
 //   tools/dma_wire_probe.py::_stream_kernel_rot   (T2: the same from chunk `start`)
 //   tools/dma_wire_probe.py::_dual_kernel         (T3: two arrays together)
 //
-// T5 is one thread an element. At (8, 128) it is bound by launch latency;
-// its purpose is to prove in about a second that nvcc builds for this
-// card and that a launch runs, before the slow builds start.
+// T5 is bound by bytes at a large size (8 bytes an element) and by launch
+// latency at (8, 128), where its purpose is to prove in a few seconds that
+// nvcc builds for this card and that a launch runs, before the slow builds
+// start. A persistent grid-stride grid (eight blocks an SM at most) moves
+// 16-byte float4 vectors where both pointers are 16-byte aligned, then the
+// n % 4 tail (or every element, unaligned) one at a time.
 //
 // T1-T3 compute, as one f32, the sum of the first element of every chunk
 // of a (rows, width) array (T2 adds `start`, T3 sums two arrays), while
@@ -44,8 +47,18 @@ namespace {
 
 __global__ void scale_shift_kernel(const float* __restrict__ x, float* __restrict__ o, float c,
                                    int64_t n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n) o[i] = 2.0f * x[i] + c;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(o)) & 15u) == 0;
+  const int64_t nvec = aligned ? n / 4 : 0;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(o);
+  for (int64_t i = first; i < nvec; i += stride) {
+    const float4 v = x4[i];
+    o4[i] = make_float4(2.0f * v.x + c, 2.0f * v.y + c, 2.0f * v.z + c, 2.0f * v.w + c);
+  }
+  for (int64_t i = 4 * nvec + first; i < n; i += stride) o[i] = 2.0f * x[i] + c;
 }
 
 // ------------------------------------------------------------ T1-T3
@@ -206,8 +219,13 @@ cudaError_t launch_stream(const void* x0, const void* x1, void* out, int elem, i
 extern "C" int mt_scale_shift(const void* x, void* o, float c, int64_t n, void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t vec_blocks = (n / 4 + threads - 1) / threads;   // a block of 256 float4
+  const int64_t cap = 8LL * sms;
+  const int64_t blocks = vec_blocks < 1 ? 1 : (vec_blocks < cap ? vec_blocks : cap);
   scale_shift_kernel<<<static_cast<unsigned>(blocks), threads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(o), c, n);

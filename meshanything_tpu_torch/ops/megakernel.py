@@ -22,6 +22,13 @@ Numerics (the TPU kernel's contract, not the per-layer step's):
     are cast to bf16 for the next product.
 
 The cache (2, L, B, S, D) is updated in place.
+
+The launch (one block an SM, ``resident_blocks``) lays its shared memory
+out by ``smem_plan``; its attention cuts the live rows into splits of
+whole ring tiles (``split_plan``, ``tile_rows``) and folds them inside the
+launch through the ticket counters and partials of the stream's
+``FoldWorkspace`` (``ops/decode_attention.py``), the one K1 and the bf16 K4
+use: calls of one stream run in order, so they share it.
 """
 from __future__ import annotations
 
@@ -33,15 +40,18 @@ from typing import Sequence
 import torch
 
 from meshanything_tpu_torch.ops import _build
+from meshanything_tpu_torch.ops.decode_attention import _stream_ptr, fold_group, fold_workspace
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 64)      # taken by csrc/megakernel.cu
 _GROUPS = (1, 2, 16)      # batch rows a GEMV pass serves (the kernel's instances)
-_WARPS = 16               # warps per block (kWarps)
-_CHUNK_ITEMS = 64         # GEMV items a block reduces in shared memory (kChunkItems)
+_WARPS = 16               # warps per block (kWarps): attention takes one a head
 _MAX_HIDDEN = 1024        # the layer norm holds a row in registers (kMaxWidth)
-_MIN_SPLIT_ROWS = 16      # fewest cache rows an attention work item takes
-_MAX_SPLITS = 64          # most context splits of one (b, h): the combine walks them all
+_MAX_SMEM = 232448        # shared memory a block may opt in to (row_stream::kMaxSmem)
+_STATIC_SMEM = 2 * _MAX_HIDDEN * 4 + 256   # the kernel's static shared memory (kStaticSmem)
+_MAX_DEPTH = 4            # slots of the attention ring at most (row_stream::kMaxDepth)
+_ROW_PAD = 16             # bytes after each staged weight or activation row (kPad)
+_TASK_BYTES = 16 * 16 * 4  # one tensor-core task's partial sums (kTaskFloats f32)
 
 
 @dataclasses.dataclass
@@ -169,7 +179,7 @@ def _kernel():
     lib = _build.load("megakernel")
     if lib.lib.mt_megakernel.argtypes is None:
         fn = lib.lib.mt_megakernel
-        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 13
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.lib.mt_megakernel_blocks
@@ -192,49 +202,88 @@ def row_group(batch: int) -> int:
     return next(g for g in _GROUPS if g >= min(batch, _GROUPS[-1]))
 
 
-def smem_bytes(group: int, hidden: int, ffn: int) -> int:
-    """K5's dynamic shared memory: a bf16 GEMV input of ``group`` rows of
-    max(D, F), and the (items, group) f32 partial sums (as in
-    ``mt_megakernel``)."""
-    return group * max(hidden, ffn) * 2 + _CHUNK_ITEMS * group * 4
+def tile_rows(cache_dtype: torch.dtype) -> int:
+    """Cache rows a tile of K5's attention ring: 16 bytes of rows a lane
+    (8 bf16 or 4 f32 rows)."""
+    return 16 // torch.empty((), dtype=cache_dtype).element_size()
+
+
+@dataclasses.dataclass(frozen=True)
+class SmemPlan:
+    """K5's shared memory a block, as ``csrc/megakernel.cu::make_layout``
+    lays it out: two weight buffers (a block's share of the largest
+    matrix, rows padded), the staged activations, the tensor-core tasks'
+    partial sums, and the attention ring over buffer 0 and what follows."""
+    weight_buffer: int        # bytes of one buffer
+    activations: int          # bytes of the staged GEMV input
+    partial_sums: int
+    ring_depth: int           # slots of the attention ring
+    ring_slot: int            # bytes of a slot: K and V of one tile
+    total: int                # the launch's dynamic shared memory
+
+
+def smem_plan(group: int, hidden: int, ffn: int, blocks: int) -> SmemPlan:
+    """The shared-memory plan of a K5 launch over ``blocks`` blocks with
+    row groups of ``group``; raises where it does not fit a block's 227 KB.
+
+    A block owns ceil(N / blocks) or fewer output rows of each matrix
+    (L, N, K), K * 2 + 16 bytes a row; groups of 16 stage their input D
+    columns at a time, the others the whole K; a ring slot is the K and V
+    rows of one tile, 32 * D bytes in either cache dtype."""
+    mats = ((3 * hidden, hidden), (hidden, hidden), (ffn, hidden), (hidden, ffn))
+    rows = [-(-n // blocks) for n, _ in mats]
+    weight = max(r * (k * 2 + _ROW_PAD) for r, (_, k) in zip(rows, mats))
+    weight = -(-weight // 128) * 128
+    kc = hidden if group == _GROUPS[-1] else max(hidden, ffn)
+    act = -(-group * (kc * 2 + _ROW_PAD) // 128) * 128
+    red = _WARPS * _TASK_BYTES if group == _GROUPS[-1] else 0
+    slot = 32 * hidden
+    budget = _MAX_SMEM - _STATIC_SMEM
+    depth = min(_MAX_DEPTH, (budget - weight) // slot)
+    total = max(2 * weight + act + red, weight + depth * slot)
+    if depth < 2 or total > budget or (group == _GROUPS[-1] and max(rows) > 16 * _WARPS):
+        raise ValueError(f"decode_step_megakernel: hidden {hidden}, ffn {ffn} over {blocks} "
+                         f"blocks does not fit a block's shared memory")
+    return SmemPlan(weight, act, red, depth, slot, total)
 
 
 _resident: dict = {}
 
 
 def resident_blocks(device: torch.device, cache_dtype: torch.dtype, group: int,
-                    smem: int) -> int:
-    """The cooperative launch's grid: blocks of K5 resident at once."""
-    key = (device.index, cache_dtype, group, smem)
+                    hidden: int, ffn: int) -> tuple[int, SmemPlan]:
+    """The cooperative launch's grid, one block an SM, and its shared
+    memory plan; raises if a block of that size does not fit an SM."""
+    key = (device.index, cache_dtype, group, hidden, ffn)
     if key not in _resident:
         lib = _kernel()
-        blocks = ctypes.c_int(0)
+        blocks = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = smem_plan(group, hidden, ffn, blocks)
+        fit = ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = lib.mt_megakernel_blocks(_DTYPE_CODES[cache_dtype], group, smem,
-                                           ctypes.byref(blocks))
+            err = lib.mt_megakernel_blocks(_DTYPE_CODES[cache_dtype], group, plan.total,
+                                           ctypes.byref(fit))
         _raise_on(lib, err, "the occupancy query")
-        if blocks.value < 1:
-            raise RuntimeError(f"decode_step_megakernel: no block fits with {smem} bytes of "
-                               "shared memory")
-        _resident[key] = blocks.value
+        if fit.value < blocks:
+            raise RuntimeError(f"decode_step_megakernel: {fit.value} blocks with {plan.total} "
+                               f"bytes of shared memory fit at once, not one an SM ({blocks})")
+        _resident[key] = (blocks, plan)
     return _resident[key]
 
 
-def split_plan(batch: int, heads: int, cur_len: int, warps: int) -> tuple[int, int]:
-    """(rows_per_split, nsplit) of the attention phase: about one (b, h,
-    split) work item per warp of the grid, at least ``_MIN_SPLIT_ROWS``
-    rows an item, at most ``_MAX_SPLITS`` splits, and no empty split."""
-    want = max(1, min(_MAX_SPLITS, -(-warps // (batch * heads))))
-    nsplit = max(1, min(-(-cur_len // _MIN_SPLIT_ROWS), want))
-    rows = -(-cur_len // nsplit)
-    return rows, -(-cur_len // rows)
+def split_plan(batch: int, cur_len: int, blocks: int, tile: int) -> tuple[int, int]:
+    """(nsplit, group) of the attention phase: about one (b, split) task a
+    block over ``batch * nsplit``, at most one split a tile so that no split
+    is empty (K1's ``split_bounds`` cuts them), folded in groups of
+    ``group`` splits (K1's ``fold_group``)."""
+    nsplit = max(1, min(-(-cur_len // tile), blocks // batch))
+    return nsplit, fold_group(nsplit)
 
 
-def scratch_floats(batch: int, hidden: int, ffn: int, nsplit: int, heads: int) -> int:
-    """f32 scratch of one launch: xs, q, o, y (B*D each), h1 (B*F), the
-    attention partials (B*nsplit*D) and their max/sum pairs
-    (B*H*nsplit*2)."""
-    return batch * (4 * hidden + ffn + nsplit * hidden + 2 * heads * nsplit)
+def scratch_floats(batch: int, hidden: int, ffn: int) -> int:
+    """f32 words of one launch's scratch: xs, q, y (B*D f32 each), then the
+    bf16 inputs of the out projection (B*D) and of fc2 (B*F)."""
+    return batch * (3 * hidden + hidden // 2 + ffn // 2)
 
 
 def decode_step_megakernel(x: torch.Tensor, packed: MegakernelLayers, kv_cache: torch.Tensor,
@@ -259,27 +308,30 @@ def decode_step_megakernel(x: torch.Tensor, packed: MegakernelLayers, kv_cache: 
     hd = d // num_heads
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not built; the kernel takes {_HEAD_DIMS}")
-    if d % 8 or f % 8 or d > _MAX_HIDDEN or any(k > 512 and k % 512 for k in (d, f)):
-        raise ValueError(f"hidden {d} and ffn {f}: the kernel takes multiples of 8, hidden "
-                         f"<= {_MAX_HIDDEN}, and each a multiple of 512 or at most 512")
+    group = row_group(b)
+    if (d % 16 or f % 8 or d > _MAX_HIDDEN or num_heads > _WARPS
+            or (group == _GROUPS[-1] and f % d)):
+        raise ValueError(f"hidden {d}, ffn {f}, {num_heads} heads: the kernel takes hidden a "
+                         f"multiple of 16 and <= {_MAX_HIDDEN}, ffn a multiple of 8 (of the "
+                         f"hidden size for batches of 3 or more), at most {_WARPS} heads")
     if any(t.data_ptr() % 16 for t in (x, kv_cache, *packed.tensors())):
         raise ValueError("decode_step_megakernel: every tensor must be 16-byte aligned")
     lib = _kernel()
-    group = row_group(b)
-    smem = smem_bytes(group, d, f)
-    blocks = resident_blocks(x.device, kv_cache.dtype, group, smem)
-    rows_per_split, nsplit = split_plan(b, num_heads, cur_len, blocks * _WARPS)
+    blocks, plan = resident_blocks(x.device, kv_cache.dtype, group, d, f)
+    nsplit, fold = split_plan(b, cur_len, blocks, tile_rows(kv_cache.dtype))
     s = kv_cache.shape[3]
+    stream = _stream_ptr(x.device)
+    o_part, ml_part, counters = fold_workspace(x.device, stream).pointers(
+        b, nsplit, fold, num_heads, hd)
     out = torch.empty_like(x)
-    scratch = torch.empty(scratch_floats(b, d, f, nsplit, num_heads), dtype=torch.float32,
-                          device=x.device)
+    scratch = torch.empty(scratch_floats(b, d, f), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.mt_megakernel(
             x.data_ptr(), out.data_ptr(), kv_cache.data_ptr(),
-            *(t.data_ptr() for t in packed.tensors()), scratch.data_ptr(),
-            _DTYPE_CODES[x.dtype], _DTYPE_CODES[kv_cache.dtype], b, n_layers, s, d, f,
-            num_heads, write_pos, cur_len, rows_per_split, nsplit, group, blocks, ln_eps,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            *(t.data_ptr() for t in packed.tensors()), scratch.data_ptr(), o_part, ml_part,
+            counters, _DTYPE_CODES[x.dtype], _DTYPE_CODES[kv_cache.dtype], b, n_layers, s, d, f,
+            num_heads, write_pos, cur_len, nsplit, fold, group, blocks, plan.total, ln_eps,
+            stream)
     _raise_on(lib, err, "the launch")
     decode_step_megakernel.launches += 1
     return out

@@ -1,8 +1,8 @@
 """The measurement kernels: the build canary (T5) and the HBM-stream
 probe (T1-T3), each with its plain PyTorch version beside it.
 
-  T5 ``scale_shift``: ``o = 2 x + c``, one thread an element; the first
-     thing every tool and the smoke run build and launch;
+  T5 ``scale_shift``: ``o = 2 x + c``, 16-byte vectors over a grid-stride
+     grid; the first thing every tool and the smoke run build and launch;
   T1 ``stream``: every byte of a (rows, width) array copied from device
      memory through a ring in shared memory; returns, as f32 (1, 1), the
      sum of the first element of every ``chunk``-row chunk;

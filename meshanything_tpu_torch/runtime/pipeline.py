@@ -11,8 +11,12 @@ matrices. On a card ``generate`` first holds the batch against the
 card's memory (``runtime/phases.py::check_memory_budget``); a ``timer``
 (``runtime/profiling.py::PhaseTimer``) is fed the three fenced phases.
 
-A failure anywhere, a kernel fault included, ends the run: nothing here
-turns an exception into a result record.
+A batch whose generation raises (a kernel fault, an out-of-memory error)
+is retried ``max_retries`` times and then recorded as ``{"uid", "error":
+"<Type>: <message>"}`` for each of its meshes, as JAX
+``runtime/pipeline.py:165-181`` does: a folder run goes on past it. A
+caller that must not pass a fault (``chip_smoke.py``) treats any record
+with an ``"error"`` key as a failure.
 """
 from __future__ import annotations
 
@@ -172,7 +176,7 @@ class InferencePipeline:
         return {"coords": coords, **out, **times}
 
     def run(self, samples: Iterable[Sample], out_dir: str, *, sampling: bool = False,
-            seed: int = 0) -> List[dict]:
+            seed: int = 0, max_retries: int = 1) -> List[dict]:
         os.makedirs(out_dir, exist_ok=True)
         samples = list(samples)
         results = []
@@ -182,13 +186,23 @@ class InferencePipeline:
             pcs = np.stack([s.pc_normal for s in chunk]).astype(np.float32)
             if len(chunk) < bs:
                 pcs = np.concatenate([pcs, np.repeat(pcs[-1:], bs - len(chunk), axis=0)])
-            generator = None
-            if sampling:
-                generator = torch.Generator(device=self.device)
-                generator.manual_seed(seed * 1_000_003 + start)
-            out = self.generate(torch.from_numpy(pcs).to(self.device), sampling=sampling,
-                                generator=generator)
-            coords = out["coords"].float().cpu().numpy()
+            out, last_err = None, None
+            for _ in range(max_retries + 1):
+                generator = None
+                if sampling:   # each attempt draws the batch's stream from its start
+                    generator = torch.Generator(device=self.device)
+                    generator.manual_seed(seed * 1_000_003 + start)
+                try:
+                    out = self.generate(torch.from_numpy(pcs).to(self.device),
+                                        sampling=sampling, generator=generator)
+                    coords = out["coords"].float().cpu().numpy()
+                    break
+                except Exception as e:  # a device fault or OOM: record, retry
+                    out, last_err = None, e
+            if out is None:
+                results.extend({"uid": s.uid, "error": f"{type(last_err).__name__}: {last_err}"}
+                               for s in chunk)
+                continue
             device_s = out["encode_s"] + out["decode_s"] + out["detok_s"]
             for i, s in enumerate(chunk):
                 t1 = time.perf_counter()

@@ -6,9 +6,9 @@ side and timed on the card.
 
 The variants compute wrong results on purpose (barriers, loads or whole
 phases removed); only their times mean something, and only beside the
-unchanged kernel of the same run. Each is a plain text substitution that
-must apply to the current source, so a variant that no longer matches the
-kernel fails loudly. One JSON line per (variant, B, cur_len): device ms a
+unchanged kernel of the same run. Each turns on some of the kernel's
+``kCut*`` constants by text substitution, which must apply to the current
+source, so a variant that no longer matches the kernel fails loudly. One JSON line per (variant, B, cur_len): device ms a
 step (24 layers, bf16 cache, seeded random bf16 layers, CUDA events over
 20 launches), then the card's name and power limit.
 """
@@ -24,37 +24,29 @@ from concurrent.futures import ThreadPoolExecutor
 from meshanything_tpu_torch.ops import _build
 
 L, HIDDEN, HEADS, FFN, S = 24, 1024, 16, 4096, 7680
-BATCHES = (1, 2, 16)
+BATCHES = (1, 2, 4, 8, 16)
 CUR_LENS = (1, 300, 7459)
 
-_NO_GEMV = ("  const int ks = k_slices(K);\n",
-            "  if (p.B > 0) return;\n  const int ks = k_slices(K);\n")
-_NO_SYNC = ("    grid.sync();\n", "    __syncthreads();\n")
-_NO_ATTN = [("    attention_partials<TC, Tuning<G>::kRowUnroll>(p, layer);\n", ""),
-            ("    combine(p);\n", "")]
-_NO_LN = [("  constexpr int kPerLane = kMaxWidth / 32;\n",
-           "  if (p.B > 0) return;\n  constexpr int kPerLane = kMaxWidth / 32;\n"),
-          ("  const int64_t n = nb * K;\n", "  if (nb > 0) return;\n  const int64_t n = nb * K;\n")]
+
+def _cut(name: str) -> tuple[str, str]:
+    """Turn one of the kernel's kCut* constants on."""
+    return f"constexpr bool {name} = false;", f"constexpr bool {name} = true;"
+
+
+_NO_WORK = [_cut("kCutWeights"), _cut("kCutGemv"), _cut("kCutAttention")]
 
 VARIANTS = {
     "kernel": [],
     # parts taken out
-    "no_barriers": [_NO_SYNC],
-    "no_weight_loads": [("w[u][h] = __ldg(wrow + v);", "w[u][h] = make_uint4(lane, 0, 0, 0);")],
-    "no_gemv": [_NO_GEMV],
-    "no_attention": _NO_ATTN,
-    "barriers_ln_only": [_NO_GEMV, *_NO_ATTN],
-    "ln_only": [_NO_SYNC, _NO_GEMV, *_NO_ATTN],
-    "empty": [_NO_SYNC, _NO_GEMV, *_NO_ATTN, *_NO_LN],
-    # the per-instance choices (Tuning) flipped
-    "small_choices_everywhere": [("  static constexpr bool kSmall = G <= 2;",
-                                  "  static constexpr bool kSmall = true;")],
-    "large_choices_everywhere": [("  static constexpr bool kSmall = G <= 2;",
-                                  "  static constexpr bool kSmall = false;")],
-    # B = 1 and 2 through the 16-row instance: 16 accumulators a lane, 14-15 of them idle
-    "groups_of_16": [("    case 1: return CALL(TC, 1);", "    case 1: return CALL(TC, 16);"),
-                     ("    case 2: return CALL(TC, 2);", "    case 2: return CALL(TC, 16);"),
-                     ("kChunkItems * group * static_cast", "kChunkItems * kMaxGroup * static_cast")],
+    "no_barriers": [_cut("kCutBarriers")],            # grid barriers -> block barriers
+    "no_weight_prefetch": [_cut("kCutPrefetch")],     # weights started at their own phase
+    "no_weight_loads": [_cut("kCutWeights")],         # GEMVs on whatever shared memory holds
+    "no_gemv": [_cut("kCutGemv")],                    # the weights still stream
+    "no_attention": [_cut("kCutAttention")],
+    "no_fold": [_cut("kCutFold")],                    # attention's partials never folded
+    "barriers_ln_only": _NO_WORK,
+    "ln_only": [*_NO_WORK, _cut("kCutBarriers")],
+    "empty": [*_NO_WORK, _cut("kCutBarriers"), _cut("kCutNorm")],
 }
 
 
@@ -71,7 +63,8 @@ def build(name: str, source: str, out_dir: str) -> tuple[str, str]:
     with open(path, "w") as fh:
         fh.write(variant_source(source, name))
     so = os.path.join(out_dir, f"{name}.so")
-    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so, path],
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
+                           "-o", so, path],
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on variant {name}:\n{proc.stdout}{proc.stderr}")
@@ -81,6 +74,7 @@ def build(name: str, source: str, out_dir: str) -> tuple[str, str]:
 def main(names=None) -> int:
     import torch
 
+    from meshanything_tpu_torch.ops import decode_attention as da
     from meshanything_tpu_torch.ops import megakernel as mk
 
     if not torch.cuda.is_available():
@@ -116,6 +110,7 @@ def main(names=None) -> int:
             # load the variant in place of the kernel for the wrapper's next calls
             _build._loaded["megakernel"] = _build.KernelLibrary(ctypes.CDLL(so), so, True, 0.0, "")
             mk._resident.clear()
+            da._workspaces.clear()   # fresh fold counters: a cut variant may leave them set
             for b in BATCHES:
                 for cur in CUR_LENS:
                     def run():

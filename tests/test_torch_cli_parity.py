@@ -1,0 +1,106 @@
+"""The port's CLI flags and the pipeline's failure handling against the
+JAX package's: the reference flags reach the config as JAX's
+``build_config`` sets them, and a batch whose generation raises is retried
+and then recorded as ``{"uid", "error"}`` as JAX's ``InferencePipeline.run``
+records it."""
+import numpy as np
+import pytest
+
+import jax
+
+from meshanything_tpu.cli import build_config as jax_build_config
+from meshanything_tpu.cli import get_args as jax_get_args
+from meshanything_tpu.config import small_test_config as jax_small_config
+from meshanything_tpu.models import meshanything as jma
+from meshanything_tpu.runtime.pipeline import InferencePipeline as JaxPipeline
+from meshanything_tpu.runtime.pipeline import load_inputs as jax_load_inputs
+from meshanything_tpu_torch import cli
+from meshanything_tpu_torch.config import small_test_config
+from meshanything_tpu_torch.runtime.checkpoint import params_from_jax_numpy
+from meshanything_tpu_torch.runtime.pipeline import InferencePipeline, load_inputs
+
+
+@pytest.mark.parametrize("flags", [
+    [],
+    ["--llm", "facebook/opt-125m"],
+    ["--codebook_size", "64", "--codebook_dim", "32"],
+    ["--codebook_size", "4096", "--n_max_triangles", "100", "--dtype", "float32"],
+])
+def test_reference_flags_reach_the_config_as_in_jax(flags):
+    """--llm is accepted and recorded; --codebook_size/--codebook_dim set
+    the codebook and vocab_size = codebook_size + 3 (JAX cli.py:101-112)."""
+    argv = ["--input_path", "x.npy", "--random_weights", *flags]
+    args, jargs = cli.get_args(argv), jax_get_args(argv)
+    assert (args.llm, args.codebook_size, args.codebook_dim) == (
+        jargs.llm, jargs.codebook_size, jargs.codebook_dim)
+    cfg, jcfg = cli.build_config(args), jax_build_config(jargs)
+    for name in ("codebook_size", "codebook_dim", "vocab_size", "hidden_size", "num_layers"):
+        assert getattr(cfg.opt, name) == getattr(jcfg.opt, name), name
+    assert (cfg.n_max_triangles, cfg.dtype) == (jcfg.n_max_triangles, jcfg.dtype)
+    cli.check_ported(args)   # none of them is refused
+
+
+@pytest.fixture(scope="module")
+def pipelines(tmp_path_factory):
+    """The JAX and the port's pipeline on the same bridged small weights,
+    and two seeded point clouds loaded by each."""
+    tmp = tmp_path_factory.mktemp("inputs")
+    jcfg, cfg = jax_small_config(n_max_triangles=4), small_test_config(n_max_triangles=4)
+    params = jma.init_meshanything_params(jax.random.PRNGKey(42), jcfg)
+    model = params_from_jax_numpy(jax.tree_util.tree_map(np.array, params), cfg)
+    rng = np.random.default_rng(8)
+    paths = []
+    for name in ("a", "b"):
+        pc = rng.normal(size=(200, 6)) * 0.3
+        pc[:, 3:] /= np.linalg.norm(pc[:, 3:], axis=-1, keepdims=True)
+        paths.append(str(tmp / f"{name}.npy"))
+        np.save(paths[-1], pc.astype(np.float32))
+    return (JaxPipeline(params, jcfg, batch_size=2, bucket=16, attn="pallas"),
+            jax_load_inputs("pc_normal", paths, num_points=64, seed=0),
+            InferencePipeline(model, cfg, batch_size=2, bucket=16),
+            load_inputs("pc_normal", paths, num_points=64, seed=0))
+
+
+@pytest.mark.parametrize("max_retries", [0, 1, 2])
+def test_failed_batch_is_retried_then_recorded_as_in_jax(pipelines, tmp_path, monkeypatch,
+                                                         max_retries):
+    """A generation that always raises: each pipeline calls it
+    max_retries + 1 times for the batch and records one {"uid", "error":
+    "<Type>: <message>"} a mesh, the same records."""
+    jpipe, jsamples, pipe, samples = pipelines
+    calls = {"jax": 0, "port": 0}
+
+    def failing(which):
+        def run(*args, **kwargs):
+            calls[which] += 1
+            raise RuntimeError("device fault")
+        return run
+
+    monkeypatch.setattr(jpipe, "_gen_greedy", failing("jax"))
+    monkeypatch.setattr(pipe, "generate", failing("port"))
+    want = jpipe.run(jsamples, str(tmp_path / "jax"), seed=0, max_retries=max_retries)
+    got = pipe.run(samples, str(tmp_path / "port"), seed=0, max_retries=max_retries)
+    assert got == want == [{"uid": "a", "error": "RuntimeError: device fault"},
+                           {"uid": "b", "error": "RuntimeError: device fault"}]
+    assert calls == {"jax": max_retries + 1, "port": max_retries + 1}
+
+
+def test_a_retry_that_succeeds_gives_the_normal_records(pipelines, tmp_path, monkeypatch):
+    """One failure, then the real generation: no error record, and the
+    meshes of a run without the failure."""
+    _, _, pipe, samples = pipelines
+    clean = pipe.run(samples, str(tmp_path / "clean"), seed=0)
+    real, failures = pipe.generate, []
+
+    def flaky(*args, **kwargs):
+        if not failures:
+            failures.append(1)
+            raise RuntimeError("transient")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(pipe, "generate", flaky)
+    got = pipe.run(samples, str(tmp_path / "retried"), seed=0, max_retries=1)
+    assert failures == [1] and not any("error" in r for r in got)
+    assert [r["faces_generated"] for r in got] == [r["faces_generated"] for r in clean]
+    for a, b in zip(got, clean):
+        assert open(a["obj_path"], "rb").read() == open(b["obj_path"], "rb").read()

@@ -27,9 +27,11 @@ from meshanything_tpu_torch.ops.megakernel import (
     decode_step_megakernel_reference,
     pack_megakernel_layers,
     row_group,
-    smem_bytes,
+    smem_plan,
     split_plan,
+    tile_rows,
 )
+from meshanything_tpu_torch.ops.decode_attention import FoldWorkspace, fold_group, split_bounds
 from meshanything_tpu_torch.runtime.checkpoint import params_from_jax_numpy
 from meshanything_tpu_torch.runtime.pipeline import InferencePipeline, load_inputs
 
@@ -265,14 +267,21 @@ def test_wrapper_refuses_bad_arguments(bridged, case, err):
         decode_step_megakernel(x, packed, kv, pos, cur, num_heads=h)
 
 
-@pytest.mark.parametrize("batch,cur_len,warps", [(1, 1, 2112), (1, 300, 2112), (1, 7459, 2112),
-                                                 (16, 7459, 2112), (16, 257, 2112), (3, 70, 64)])
-def test_split_plan_covers_the_live_rows(batch, cur_len, warps):
-    """The attention phase's work items: no empty split, the splits cover
-    exactly [0, cur_len), and about one item per warp."""
-    rows, nsplit = split_plan(batch, 16, cur_len, warps)
-    assert nsplit >= 1 and (nsplit - 1) * rows < cur_len <= nsplit * rows
-    assert nsplit <= 64 and batch * 16 * nsplit <= max(warps + batch * 16, batch * 16)
+@pytest.mark.parametrize("batch,cur_len,blocks", [(1, 1, 132), (1, 300, 132), (1, 7459, 132),
+                                                  (16, 7459, 132), (16, 257, 132), (3, 70, 64)])
+def test_split_plan_covers_the_live_rows(batch, cur_len, blocks):
+    """The attention phase's (b, split) tasks: whole ring tiles, no empty
+    split, the splits cover exactly [0, cur_len), about one task a block,
+    folded in K1's groups."""
+    for dtype in (torch.bfloat16, torch.float32):
+        tile = tile_rows(dtype)
+        nsplit, group = split_plan(batch, cur_len, blocks, tile)
+        bounds = split_bounds(cur_len, tile, nsplit)
+        assert bounds[0][0] == 0 and bounds[-1][1] == cur_len
+        assert all(a < b and a % tile == 0 for a, b in bounds)
+        assert all(b0 == a1 for (_, b0), (a1, _) in zip(bounds, bounds[1:]))
+        assert batch * nsplit <= max(blocks, batch) and group == fold_group(nsplit)
+    assert (tile_rows(torch.bfloat16), tile_rows(torch.float32)) == (8, 4)
 
 
 @pytest.mark.parametrize("batch,group", [(1, 1), (2, 2), (3, 16), (4, 16), (8, 16), (16, 16),
@@ -284,11 +293,58 @@ def test_row_group_covers_the_batch(batch, group):
     assert row_group(batch) == group
     groups = -(-batch // group)
     assert (groups - 1) * group < batch <= groups * group
-    assert smem_bytes(group, 1024, 4096) <= 227 * 1024
+    assert smem_plan(group, 1024, 4096, 132).total <= 232448
+
+
+@pytest.mark.parametrize("group,hidden,ffn,blocks,want", [
+    # (weight buffer, activations, partial sums, ring depth, total) as the kernel's note gives them
+    (16, 1024, 4096, 132, (66048, 33024, 16384, 4, 197120)),
+    (2, 1024, 4096, 132, (66048, 16512, 0, 4, 197120)),
+    (1, 1024, 4096, 132, (66048, 8320, 0, 4, 197120)),
+    (16, 32, 64, 132, (256, 1280, 16384, 4, 18176)),
+])
+def test_smem_plan_per_instance(group, hidden, ffn, blocks, want):
+    """K5's shared memory a block: two weight buffers of a block's largest
+    share (32 fc1 rows of 2,064 bytes at the 350M width), the staged input
+    (D columns a pass for G = 16), the tensor-core tasks' sums, and the
+    attention ring over buffer 0 and what follows it, every region 128-byte
+    aligned; the ring never reaches past the launch's bytes."""
+    plan = smem_plan(group, hidden, ffn, blocks)
+    assert (plan.weight_buffer, plan.activations, plan.partial_sums, plan.ring_depth,
+            plan.total) == want
+    assert plan.weight_buffer % 128 == 0 and plan.activations % 128 == 0
+    assert plan.ring_slot == 2 * tile_rows(torch.bfloat16) * hidden * 2
+    assert plan.weight_buffer + plan.ring_depth * plan.ring_slot <= plan.total <= 232448
+    share = -(-4 * hidden // blocks) if ffn == 4 * hidden else None
+    if share is not None:
+        assert plan.weight_buffer >= share * (2 * hidden + 16)
+
+
+def test_smem_plan_refuses_what_does_not_fit():
+    """Over too few blocks a share of fc2 outgrows a block's 227 KB."""
+    with pytest.raises(ValueError, match="shared memory"):
+        smem_plan(16, 1024, 4096, 8)
+
+
+@pytest.mark.parametrize("batch,cur_len", [(1, 7459), (16, 7459), (24, 300)])
+def test_fold_workspace_holds_the_k5_fold(batch, cur_len):
+    """K5's fold uses the stream's FoldWorkspace as K1 does: the partials
+    of every (b, split) and group slot, H heads of head_dim values and
+    their (max, sum) pairs, fit the buffer, and the ticket counters of a
+    batch row and its groups fit the counters."""
+    heads, hd = 16, 64
+    nsplit, group = split_plan(batch, cur_len, 132, tile_rows(torch.bfloat16))
+    ws = FoldWorkspace(torch.device("cpu"))
+    o_part, ml_part, counters = ws.pointers(batch, nsplit, group, heads, hd)
+    slots = nsplit + -(-nsplit // group)
+    assert ml_part - o_part == 4 * batch * slots * heads * hd
+    assert ws.partials.numel() >= batch * slots * heads * (hd + 2)
+    assert ws.counters.numel() >= batch * (1 + -(-nsplit // group))
+    assert counters == ws.counters.data_ptr() and bool((ws.counters == 0).all())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1, 2, 5, 18])
+@pytest.mark.parametrize("batch", [1, 2, 4, 5, 8, 18])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_the_card(bridged, dtype, batch):
     if not torch.cuda.is_available():
@@ -315,3 +371,26 @@ def test_kernel_matches_plain_on_the_card(bridged, dtype, batch):
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
         torch.testing.assert_close(kv_k.float(), kv_p.float(), atol=tol, rtol=tol)
 
+
+
+@pytest.mark.parametrize("variant", ["kernel", "no_barriers", "no_weight_prefetch",
+                                     "no_weight_loads", "no_gemv", "no_attention", "no_fold",
+                                     "barriers_ln_only", "ln_only", "empty"])
+def test_k5_breakdown_variants_apply_to_the_kernel(variant):
+    """Every variant of tools/k5_breakdown.py applies to the current
+    csrc/megakernel.cu and only turns kCut* constants on: the kernel
+    itself has every one of them off."""
+    import os
+    import re
+
+    from meshanything_tpu_torch.ops import _build
+    from meshanything_tpu_torch.tools.k5_breakdown import VARIANTS, variant_source
+
+    with open(os.path.join(_build.CSRC_DIR, "megakernel.cu")) as fh:
+        source = fh.read()
+    cuts = re.findall(r"constexpr bool (kCut\w+) = (\w+);", source)
+    assert cuts and all(value == "false" for _, value in cuts)
+    changed = variant_source(source, variant)
+    on = set(re.findall(r"constexpr bool (kCut\w+) = true;", changed))
+    assert on == {old.split()[2] for old, _ in VARIANTS[variant]}
+    assert re.sub(r"= (true|false);", "", changed) == re.sub(r"= (true|false);", "", source)
