@@ -12,10 +12,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
   1. device: a CUDA card is required (no CPU fallback); then the canary:
      T5 (csrc/probes.cu, built alone in seconds) against its plain
      version, exact, before the slow builds start;
-  2. build: K1 (csrc/decode_attention.cu), the bf16 K4
-     (csrc/decode_attention_window.cu), K2, K3 and the other K4s
+  2. build: K1 (csrc/decode_attention.cu), the tensor-core K4 over bf16,
+     int8 and int4 caches (csrc/decode_attention_window.cu), K2 and K3
+     (csrc/decode_attention_quant.cu), the other K4s
      (csrc/decode_attention_fast.cu), K5 (csrc/megakernel.cu) and T4
-     (csrc/k1_probe.cu) are compiled with nvcc, all five at once;
+     (csrc/k1_probe.cu) are compiled with nvcc, all six at once;
   3. K1 against its plain PyTorch version at the production shapes
      (L=24, H=16, D=64, S=7680, layer 23; B 1 and 16; cur_len 1, 257,
      4000, 7459; f32 and bf16), with a NaN tail past cur_len and NaN in
@@ -29,19 +30,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
   5. K4 against its plain version over bf16, f32, int8 and int4 caches
      (int8 and int4 with f32 and bf16 queries, held as K2 and K3), B 1 and
      16, W 4, 8 and 16, base 1, 256, 4000 and 7450 (row b gets base - b),
-     random window rows, the same poisoning past base[b]; the bf16 cache
-     (the tensor-core kernel) also at W 1 and at base S - W, so that a base
-     ends inside a tile, on a tile edge, at 1 and at the cache's end, and
-     held to 1% of each head vector's largest element (WINDOW_RTOL: its P
-     is not rounded);
-  5a. a K1 call and a bf16 K4 call at B 1 and 16, each captured in a CUDA
-     graph and replayed 20 times: every replay must equal the eager
-     result bit for bit (the fold sums in split order and leaves its
-     ticket counters at zero);
+     random window rows, the same poisoning past base[b]; the tensor-core
+     kernel (bf16 cache, and int8/int4 with bf16 queries) also at W 1 and
+     at base S - W, so that a base ends inside a tile, on a tile edge, at 1
+     and at the cache's end; over bf16 held to 1% of each head vector's
+     largest element (WINDOW_RTOL: its P is not rounded);
+  5a. a K1, a bf16 K4, a K2, a K3 and an int8 and an int4 K4 call at B 1
+     and 16, each captured in a CUDA graph and replayed 20 times: every
+     replay must equal the eager result bit for bit (the fold sums in
+     split order and leaves its ticket counters at zero);
   6. K1-K4 and their plain versions timed with CUDA events at cur_len
      7459 / base 7450 (device time of CUDA-graph replays; K1 also eager),
      with the one PyTorch call that computes the same function where
-     there is one (scaled_dot_product_attention for K1 and bf16 K4);
+     there is one (scaled_dot_product_attention for K1 and bf16 K4); then
+     K2, K3 and the int8/int4 K4 alone at B 1, 2 and 16, cur_len 7459 and
+     300, W 8 and 16 (tools/attn_compare.py's quant_grid);
   7. K5, the whole decode step, against its plain version at the full
      350M width (L=24, D=1024, F=4096, S=7680; f32 and bf16 caches) on
      every compiled row group: B 1, 2 and 16 at cur_len 1, 257, 4000 and
@@ -78,7 +81,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
      inputs (M1 B=1, M2 B=2 cut to 400 faces; K5); the OBJs must parse
      and each run must launch exactly its kernel, 24 times per decode step
      or window forward (K5: once a decode step), and no other kernel, and
-     return no error record;
+     return no error record; F3's K4 launches must all be the bf16
+     tensor-core kernel's, F1's and F2's the int8/int4 one's;
   9. agreement on a small input: the small config on the card (through
      the kernels) against the same weights on the CPU (plain versions),
      exact tier, fast tiers and megakernel, in f32: tokens and coordinates
@@ -126,8 +130,8 @@ WINDOW_RTOL = 1e-2
 # (A dropped context split moves it by 15-160%; the f32-query cases are held
 # at TOL["float32"].)
 QUANT_RTOL = 2e-2
-KERNEL_LIBS = ("decode_attention", "decode_attention_window", "decode_attention_fast",
-               "megakernel", "k1_probe")
+KERNEL_LIBS = ("decode_attention", "decode_attention_window", "decode_attention_quant",
+               "decode_attention_fast", "megakernel", "k1_probe")
 PROBE_GIB = 4                     # T1-T3 are timed on arrays of this size
 PROBE_CUR = 7168                  # live rows T4 is timed at (the TPU tool's)
 FFN = 4096                        # the 350M model's fc1 width
@@ -373,6 +377,9 @@ def check_k23(torch, da) -> dict:
     return worst
 
 
+KV_DTYPES = {"bfloat16": "bfloat16", "float32": "float32", "int8": "int8", "int4": "int32"}
+
+
 def _k4_cache(torch, gen, kind: str, batch: int):
     """(kv, scales) of one K4 cache kind (scales None for bf16/f32); every
     layer but LAYER is NaN (or NaN-scaled garbage)."""
@@ -388,23 +395,25 @@ def _k4_cache(torch, gen, kind: str, batch: int):
 
 def check_k4(torch, da, kinds=("bfloat16", "float32", "int8", "int4")) -> dict:
     """Phase 5 over the caches ``kinds``; returns the largest error against
-    the plain version of each of K4's two kernels ({"window": ..,
-    "tile_split": ..})."""
+    the plain version of each of K4's kernels ({"window": ..,
+    "window_quant": .., "tile_split": ..})."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    worst, failures = {"window": 0.0, "tile_split": 0.0}, []
+    worst, failures = {"window": 0.0, "window_quant": 0.0, "tile_split": 0.0}, []
     # (cache, query dtype): the quantized caches with f32 queries too, held at
     # TOL["float32"]; every bf16 query by head vector (_held)
     cases = [(kind, qd) for kind in kinds
              for qd in ({"float32": (torch.float32,), "bfloat16": (torch.bfloat16,)}
                         .get(kind, (torch.float32, torch.bfloat16)))]
     for kind, qdtype in cases:
-        # the tensor-core kernel also at one query and at the cache's end
-        windows = (1, *WINDOWS) if kind == "bfloat16" else WINDOWS
+        kernel = da.mq_kernel_for(getattr(torch, KV_DTYPES[kind]), D, qdtype)
+        # the tensor-core kernels also at one query and at the cache's end
+        tensor_cores = kernel != "tile_split"
+        windows = (1, *WINDOWS) if tensor_cores else WINDOWS
         for batch in (1, 16):
             kv, scales = _k4_cache(torch, gen, kind, batch)
             packed = kv.shape[-1]
             for w in windows:
-                bases = (S - w, *BASES) if kind == "bfloat16" else BASES
+                bases = (S - w, *BASES) if tensor_cores else BASES
                 if w != windows[0]:      # fresh live rows: the last case poisoned them
                     if scales is None:
                         kv[:, LAYER] = torch.randn(kv[:, LAYER].shape, generator=gen,
@@ -422,7 +431,6 @@ def check_k4(torch, da, kinds=("bfloat16", "float32", "int8", "int4")) -> dict:
                     _garble(win, gen)
                     win_s = tuple(torch.rand((batch, 1, w), generator=gen, device="cuda") * 0.02
                                   + 1e-3 for _ in range(2))
-                kernel = da.mq_kernel_for(kv.dtype, D)
                 errs, rel_errs, oks = [], [], []
                 for base0 in bases:
                     base = (base0 - torch.arange(batch, device="cuda")).clamp_min(1).int()
@@ -461,11 +469,26 @@ def check_k4(torch, da, kinds=("bfloat16", "float32", "int8", "int4")) -> dict:
     return worst
 
 
+def _replay_quant_cache(torch, gen, bits: int, batch: int):
+    """A two-layer int8 or int4 cache, its scales and an 8-row window's
+    codes and scales, for the graph replays."""
+    hd = H * D if bits == 8 else H * D // 8
+    dtype = torch.int8 if bits == 8 else torch.int32
+    values = torch.empty((2, 2, batch, S, hd), dtype=dtype, device="cuda")
+    win = torch.empty((2, batch, 8, hd), dtype=dtype, device="cuda")
+    _garble(values, gen)
+    _garble(win, gen)
+    scales = torch.rand((2, 2, batch, 1, S), generator=gen, device="cuda") * 0.02 + 1e-3
+    win_s = torch.rand((2, batch, 1, 8), generator=gen, device="cuda") * 0.02 + 1e-3
+    return values, scales, win, win_s
+
+
 def check_graph_replays(torch, da, replays: int = 20) -> None:
-    """Phase 5a: K1 and the bf16 K4 fold their partials in the launch that
-    made them, through ticket counters that persist between calls. One
-    call of each at B 1 and 16 is captured in a CUDA graph and replayed:
-    every replay must equal the eager call bit for bit."""
+    """Phase 5a: K1, K2, K3 and the tensor-core K4 (bf16, int8, int4) fold
+    their partials in the launch that made them, through ticket counters
+    that persist between calls. One call of each at B 1 and 16 is captured
+    in a CUDA graph and replayed: every replay must equal the eager call
+    bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     failures = []
     for batch in (1, 16):
@@ -476,9 +499,17 @@ def check_graph_replays(torch, da, replays: int = 20) -> None:
         win = torch.randn((2, batch, 8, H * D), generator=gen, device="cuda",
                           dtype=torch.bfloat16)
         base = (7450 - 37 * torch.arange(batch, device="cuda")).int()
+        i8 = _replay_quant_cache(torch, gen, 8, batch)
+        i4 = _replay_quant_cache(torch, gen, 4, batch)
         calls = {"k1": lambda: da.decode_attention(q, kv, 1, 7459),
                  "k4_bfloat16": lambda: da.decode_attention_mq(qw, kv, None, 1, base, win[0],
-                                                               win[1])}
+                                                               win[1]),
+                 "k2": lambda: da.decode_attention_int8(q, i8[0], i8[1], 1, 7459),
+                 "k3": lambda: da.decode_attention_int4(q, i4[0], i4[1], 1, 7459),
+                 "k4_int8": lambda: da.decode_attention_mq(qw, i8[0], i8[1], 1, base, i8[2][0],
+                                                           i8[2][1], i8[3][0], i8[3][1]),
+                 "k4_int4": lambda: da.decode_attention_mq(qw, i4[0], i4[1], 1, base, i4[2][0],
+                                                           i4[2][1], i4[3][0], i4[3][1])}
         for name, call in calls.items():
             want = call()               # eager
             side = torch.cuda.Stream()
@@ -501,7 +532,7 @@ def check_graph_replays(torch, da, replays: int = 20) -> None:
             if not (all(same) and again):
                 failures.append((name, batch))
             del graph, out
-        del kv
+        del kv, i8, i4, calls
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"graph replays differ from the eager call: {failures}")
@@ -1270,6 +1301,7 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
     for fn in wrappers.values():
         fn.launches = 0
     wrappers["k4"].window_launches = 0
+    wrappers["k4"].quant_window_launches = 0
     t0 = time.perf_counter()
     pipeline.check_memory_budget = recording_check
     try:
@@ -1295,12 +1327,15 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
     expected = {k: (per_unit * units if k == kernel else 0) for k in wrappers}
     if launches != expected or units == 0:
         raise AssertionError(f"{name}: launches {launches}, expected {expected}")
-    # of K4's launches, those of the tensor-core kernel: all of them where the cache is
-    # bf16 at the 350M head width (F3), none where it is quantized
+    # of K4's launches, those of the tensor-core kernels: all of them the bf16 one's
+    # where the cache is bf16 at the 350M head width (F3), all the int8/int4 one's where
+    # it is quantized and the queries bf16 (F1, F2), none elsewhere
     window = wrappers["k4"].window_launches
-    if window != (launches["k4"] if name in WINDOW_KERNEL_RUNS else 0):
-        raise AssertionError(f"{name}: {window} of {launches['k4']} K4 launches took the "
-                             f"window kernel")
+    quant_window = wrappers["k4"].quant_window_launches
+    if (window != (launches["k4"] if name in WINDOW_KERNEL_RUNS else 0)
+            or quant_window != (launches["k4"] if name in QUANT_WINDOW_KERNEL_RUNS else 0)):
+        raise AssertionError(f"{name}: of {launches['k4']} K4 launches {window} took the bf16 "
+                             f"window kernel and {quant_window} the int8/int4 one")
     for r in results:
         mesh = load_obj(r["obj_path"])
         if len(mesh.faces) and (mesh.faces.max() >= len(mesh.vertices)
@@ -1313,6 +1348,7 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
     info = {
         "run": name, "argv": [a for a in argv if not a.startswith("/")], "meshes": len(results),
         "decode_steps": steps, "launches": launches, "k4_window_launches": window,
+        "k4_quant_window_launches": quant_window,
         "wall_s": wall,
         "device_s_per_mesh": sum(r["device_time_s"] for r in results) / len(results),
         "wall_s_per_mesh": wall / len(results),
@@ -1330,6 +1366,7 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
 
 
 WINDOW_KERNEL_RUNS = ("F3",)      # the runs whose K4 is the bf16 tensor-core kernel
+QUANT_WINDOW_KERNEL_RUNS = ("F1", "F2")   # and those whose K4 is its int8/int4 instances
 
 
 AGREEMENT_CASES = (
@@ -1434,7 +1471,8 @@ def main(argv=None) -> int:
     worst, times, probe_times = {}, {}, {}
     if "k4_check" in only:
         k4_worst = check_k4(torch, da)
-        worst.update(k4=k4_worst["tile_split"], k4_window=k4_worst["window"])
+        worst.update(k4=k4_worst["tile_split"], k4_window=k4_worst["window"],
+                     k4_window_quant=k4_worst["window_quant"])
     if "k1_check" in only:
         worst["k1"] = check_k1(torch, da)
     if "k23_check" in only:
@@ -1444,7 +1482,9 @@ def main(argv=None) -> int:
     if "k1_time" in only:
         times["k1"] = time_k1(torch, da, card)
     if "fast_time" in only:
+        from meshanything_tpu_torch.tools.attn_compare import quant_grid
         times.update(time_fast(torch, da, card))
+        times["quant_grid"] = quant_grid(torch, da, card)
     if "k5_check" in only:
         worst["k5"] = check_k5(torch, mk)
     if "k5_replay" in only:
@@ -1537,12 +1577,20 @@ def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dic
     measured roof."""
     launches = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
     window_launches = sum(r["k4_window_launches"] for r in runs)
+    quant_window_launches = sum(r["k4_quant_window_launches"] for r in runs)
     src = "meshanything_tpu_torch/csrc/"
     tpu = "meshanything_tpu/ops/decode_attention.py:"
+    # K2, K3 and the int8/int4 K4 beyond the headline shapes: {kernel: {b1_len300_w8: ms}}
+    grid = {}
+    for rec in times["quant_grid"]:
+        key = f"b{rec['batch']}_len{rec['cur_len']}" + (
+            f"_w{rec['window']}" if rec["kernel"].startswith("k4") else "")
+        grid.setdefault(rec["kernel"], {})[key] = {f: rec[f] for f in ("ms", "bound_ms")}
     rows = [("k1", "decode_attention", "decode_attention.cu", "567", times["k1"]),
-            ("k2", "decode_attention_int8", "decode_attention_fast.cu", "900", times["k2"]),
-            ("k3", "decode_attention_int4", "decode_attention_fast.cu", "951", times["k3"]),
-            ("k4", "decode_attention_mq", "decode_attention_fast.cu", "98", times["k4_int8"])]
+            ("k2", "decode_attention_int8", "decode_attention_quant.cu", "900", times["k2"]),
+            ("k3", "decode_attention_int4", "decode_attention_quant.cu", "951", times["k3"]),
+            ("k4", "decode_attention_mq (int8/int4 cache, bf16 queries, head width 64)",
+             "decode_attention_window.cu", "98", times["k4_int8"])]
     kernels = []
     for key, name, source, line, t in rows:
         entry = {"name": name, "route": "cuda", "source": src + source, "replaces": tpu + line,
@@ -1551,13 +1599,20 @@ def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dic
                  "bound_by": t[1]["bound_by"], "library_ms": t[1].get("library_ms"),
                  "ms_b16": t[16]["ms"], "plain_ms_b16": t[16]["plain_ms"],
                  "bound_ms_b16": t[16]["bound_ms"], "library_ms_b16": t[16].get("library_ms")}
+        if key in ("k2", "k3"):
+            entry["grid"] = grid[key]
         if key == "k4":
             entry["window"] = 8
             entry["cache"] = "int8"
-            entry["launches"] -= window_launches     # the other kernel's are in its own entry
+            entry["max_abs_err"] = worst["k4_window_quant"]
+            entry["launches"] = quant_window_launches
+            # decode_attention_fast.cu's K4 (f32 cache, f32 queries, head width 8)
+            entry["launches_other_k4_kernel"] = (launches["k4"] - window_launches
+                                                 - quant_window_launches)
             for b in (1, 16):
                 for field in ("ms", "plain_ms", "bound_ms"):
                     entry[f"{field}_int4_b{b}"] = times["k4_int4"][b][field]
+            entry["grid"] = {"int8": grid["k4_int8"], "int4": grid["k4_int4"]}
         kernels.append(entry)
     t = times["k4_bfloat16"]
     kernels.append({

@@ -1,19 +1,20 @@
-// K2, K3 and K4 on Hopper: flash-decoding over the fast tier's caches,
-// one block per (batch row, split of the context) covering ALL heads.
+// K4 on Hopper for the caches that the tensor-core window kernel does not
+// take: flash-decoding of W window queries, one block per (batch row,
+// split of the context) covering ALL heads.
 //
-// Replaces three uses of the TPU kernels in
-// meshanything_tpu/ops/decode_attention.py:
-//   K2  _flash_decode_pipelined_kernel with an int8 cache
-//       (decode_attention_int8_impl(pipelined=True), from the quantized
-//       decode step of models/shape_opt.py);
-//   K3  the same kernel with an int4 "plane" cache (bits=4, _unpack4;
-//       decode_attention_int4_impl(pipelined=True));
-//   K4  _flash_decode_kernel with win_kv set (decode_attention_mq_impl,
-//       _mq_int8_impl, _mq_int4_impl, from the window forward of
-//       models/lookahead.py): W queries per row over the confirmed cache
-//       rows [0, base[b]) plus the W window rows as one causal tile,
-//       over an f32, bf16, int8 or int4 cache.
-// K2 and K3 are K4's sweep with W = 1, no window, and base = cur_len.
+// Replaces, for those caches, the TPU kernel
+//   meshanything_tpu/ops/decode_attention.py::_flash_decode_kernel
+// with win_kv set (decode_attention_mq_impl, _mq_int8_impl,
+// _mq_int4_impl, from the window forward of models/lookahead.py): W
+// queries per row over the confirmed cache rows [0, base[b]) plus the W
+// window rows as one causal tile. Which cases come here
+// (ops/decode_attention.py::mq_kernel_for): the f32 cache; the int8 and
+// int4 caches with f32 queries (held tightly, at 1e-5, against their
+// plain version); and the small config's head width 8 over any cache.
+// A bf16 cache at head width 64, and the int8/int4 caches with bf16
+// queries at head width 64 (the fast tier's path), go to
+// decode_attention_window.cu, and the entry point below refuses them.
+// K2 and K3 (one query) are decode_attention_quant.cu.
 //
 // Numerics (the TPU kernels' contract, decode_attention.py:280-347 and
 // :689-714):
@@ -25,28 +26,16 @@
 // Codes (int8, int4) and bf16 values are exact in f32, so the dots are
 // the TPU kernels' up to summation order.
 //
-// What bounds it on this card: the bytes of the live cache rows at W = 1
-// (int8: B * cur_len * 2 * H*D bytes, 245 MB at B=16, cur_len 7459; int4
-// a quarter of bf16), and the W-fold CUDA-core arithmetic at W = 8-16.
-// What the design does about it:
-//   * a block stages a tile of T whole rows (all heads) of K and V into
-//     shared memory with 16-byte loads, so every packed word is read from
-//     device memory once per call: an int4 word carries columns of 8
-//     different heads (column c sits in plane c / (HD/8), word c % (HD/8)),
-//     and a block per (b, h) would read each word 8 times;
-//   * the W queries of a row share each staged tile (one cache sweep for
-//     all W queries);
-//   * the context is split across blocks (grid = (B, splits)) and a second
-//     kernel combines the f32 partials, so B = 1 still fills the card; in
-//     K4 the window tile is one more split, and splits past base[b]
-//     stage no rows (base[b] stays on the device: no host read per call;
-//     the grid is sized by the cache length, a fixed cost at short
-//     context);
-//   * offsets are 64-bit: the int8 cache at B=16 has a K->V plane stride
-//     of 3.02 GB, past 2^31 bytes.
-// A simple kernel: no tensor cores, no TMA, no cp.async pipeline; shared
-// memory rows are padded by one word so that the logit pass (one thread
-// per (row, head)) reads without bank conflicts.
+// A simple kernel: CUDA cores, no TMA, no pipeline. A block stages a tile
+// of T whole rows (all heads) of K and V into shared memory with 16-byte
+// loads, so every packed word is read from device memory once per call
+// (an int4 word carries columns of 8 different heads); the W queries of a
+// row share each staged tile; the context is split across blocks (grid =
+// (B, splits)) and a second kernel combines the f32 partials; the window
+// tile is one more split, and splits past base[b] stage no rows (base[b]
+// stays on the device: the grid is sized by the cache length). Offsets
+// are 64-bit. Shared-memory rows are padded by one word so that the
+// logit pass (one thread per (row, head)) reads without bank conflicts.
 // The kernels allocate nothing and do not synchronise; the Python wrapper
 // allocates the partials and the output.
 #include <cuda_bf16.h>
@@ -130,14 +119,14 @@ struct Args {
   const void* q;           // (B, W, H, D) in the query dtype
   const uint32_t* kv;      // (2, L, B, S, nw) cache words, K plane then V plane
   const float* scales;     // (2, L, B, 1, S) f32, quantized caches only
-  const int32_t* base;     // (B,) cache rows every query sees; null: n_rows
-  const uint32_t* win_k;   // (B, W, nw) window rows, or null (no window)
+  const int32_t* base;     // (B,) cache rows every query sees
+  const uint32_t* win_k;   // (B, W, nw) window rows
   const uint32_t* win_v;
   const float* win_ks;     // (B, 1, W) f32, quantized caches only
   const float* win_vs;
   float* o_part;           // (B*W*H, nsplit, D) f32
   float* ml_part;          // (B*W*H, nsplit, 2) f32: running max, running sum
-  int64_t B, W, H, L, S, layer, n_rows, rows_per_split;
+  int64_t B, W, H, L, S, layer, rows_per_split;
   int64_t nsplit_cache;    // splits over the cache; the window tile is split nsplit_cache
   int64_t nsplit;          // blocks along y
   float scale;             // 1 / sqrt(D)
@@ -189,7 +178,7 @@ __global__ void __launch_bounds__(kThreads) tile_split_kernel(const Args a) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const bool windowed = a.win_k != nullptr && split == a.nsplit_cache;
+  const bool windowed = split == a.nsplit_cache;
 
   const uint32_t* kp;
   const uint32_t* vp;
@@ -206,7 +195,7 @@ __global__ void __launch_bounds__(kThreads) tile_split_kernel(const Args a) {
     row0 = 0;
     row1 = W;
   } else {
-    int64_t n = a.base != nullptr ? static_cast<int64_t>(a.base[b]) : a.n_rows;
+    int64_t n = a.base[b];
     n = n < a.S ? n : a.S;
     row0 = split * a.rows_per_split;
     row1 = row0 + a.rows_per_split < n ? row0 + a.rows_per_split : n;
@@ -420,13 +409,24 @@ cudaError_t launch(const Args& a, void* out, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// bf16 queries at head width 64 over a bf16, int8 or int4 cache are the
+// window kernel's (decode_attention_window.cu): not built here
+template <int F, typename QT>
+__host__ __device__ constexpr bool window_kernel_case() {
+  return std::is_same<QT, __nv_bfloat16>::value;
+}
+
 template <int F, typename QT, int WMAX>
 cudaError_t dispatch_d(const Args& a, int64_t D, void* out, cudaStream_t stream) {
   switch (D) {
     case 8:  // small_test_config (hidden 32, 4 heads)
       return launch<F, QT, 8, WMAX>(a, out, stream);
     case 64:  // the 350M model (hidden 1024, 16 heads)
-      return launch<F, QT, 64, WMAX>(a, out, stream);
+      if constexpr (window_kernel_case<F, QT>()) {
+        return cudaErrorInvalidValue;
+      } else {
+        return launch<F, QT, 64, WMAX>(a, out, stream);
+      }
     default:
       return cudaErrorInvalidValue;
   }
@@ -441,34 +441,13 @@ cudaError_t dispatch_w(const Args& a, int64_t D, void* out, cudaStream_t stream)
 
 }  // namespace
 
-// C interface, loaded with ctypes. qdtype: 0 = float32, 1 = bfloat16.
-// fmt: 2 = int8 (K2), 3 = int4 plane words (K3). o_part is
-// (B*H*nsplit, D) f32, ml_part (B*H*nsplit, 2) f32. Returns
-// cudaGetLastError() after the two launches (0 on success).
-extern "C" int mt_decode_attention_quant(const void* q, const void* kv, const void* scales,
-                                         void* out, void* o_part, void* ml_part, int fmt,
-                                         int qdtype, int64_t B, int64_t H, int64_t D, int64_t L,
-                                         int64_t S, int64_t layer, int64_t cur_len,
-                                         int64_t rows_per_split, int64_t nsplit, void* stream) {
-  Args a{q,       static_cast<const uint32_t*>(kv), static_cast<const float*>(scales),
-         nullptr, nullptr, nullptr, nullptr, nullptr,
-         static_cast<float*>(o_part), static_cast<float*>(ml_part),
-         B, 1, H, L, S, layer, cur_len, rows_per_split, nsplit, nsplit,
-         static_cast<float>(1.0 / sqrt(static_cast<double>(D)))};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (fmt == kI8 && qdtype == 0) err = dispatch_d<kI8, float, 1>(a, D, out, st);
-  if (fmt == kI8 && qdtype == 1) err = dispatch_d<kI8, __nv_bfloat16, 1>(a, D, out, st);
-  if (fmt == kI4 && qdtype == 0) err = dispatch_d<kI4, float, 1>(a, D, out, st);
-  if (fmt == kI4 && qdtype == 1) err = dispatch_d<kI4, __nv_bfloat16, 1>(a, D, out, st);
-  return static_cast<int>(err);
-}
-
 // K4. fmt: 0 = float32, 1 = bfloat16 (qdtype must match), 2 = int8,
 // 3 = int4. base (B,) int32 on the card; win_k / win_v (B, W, nw) in the
 // cache's words; win_ks / win_vs (B, 1, W) f32 for the quantized caches
-// (null otherwise). W <= 16. o_part is (B*W*H*(nsplit_cache + 1), D) f32,
-// ml_part (B*W*H*(nsplit_cache + 1), 2) f32.
+// (null otherwise). W <= 16. bf16 queries only at head width 8 (at 64
+// they are the window kernel's: refused). o_part is
+// (B*W*H*(nsplit_cache + 1), D) f32, ml_part (B*W*H*(nsplit_cache + 1), 2)
+// f32.
 extern "C" int mt_decode_attention_mq(const void* q, const void* kv, const void* scales,
                                       const void* base, const void* win_k, const void* win_v,
                                       const void* win_ks, const void* win_vs, void* out,
@@ -487,7 +466,7 @@ extern "C" int mt_decode_attention_mq(const void* q, const void* kv, const void*
          static_cast<const float*>(win_vs),
          static_cast<float*>(o_part),
          static_cast<float*>(ml_part),
-         B, W, H, L, S, layer, 0, rows_per_split, nsplit_cache, nsplit_cache + 1,
+         B, W, H, L, S, layer, rows_per_split, nsplit_cache, nsplit_cache + 1,
          static_cast<float>(1.0 / sqrt(static_cast<double>(D)))};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;

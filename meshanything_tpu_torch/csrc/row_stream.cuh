@@ -34,6 +34,16 @@
 // and addresses are multiples of 16 bytes (row_bytes is; the launcher
 // checks).
 //
+// A ring may also carry a side array: the rows' f32 scales of the quantized
+// caches, (2, L, B, 1, S), contiguous for a (layer, b) as the rows are.
+// RingT<true> copies a tile's K scales and V scales with two more bulk
+// copies reported to the same barrier, into the end of the slot. A copy
+// of `rows` scales moves rows rounded up to a multiple of 4 (16 bytes):
+// that stays inside S when S % 4 == 0 (the launchers check) and a tile
+// starts on a multiple of 4 rows, and the barrier counts the rounded
+// bytes. Scales past `rows` are stale: the consumer selects them away.
+// Ring (= RingT<false>) is the ring without it, unchanged.
+//
 // Per tile the block pays one __syncthreads (everyone is done with the
 // slot that is refilled next) and one wait on the slot's barrier; no load
 // instruction and no register is spent on the bytes. Shared memory is the
@@ -121,7 +131,14 @@ inline cudaError_t opt_in_smem(Kernel kernel, int64_t bytes, int64_t (&opted_in)
   return err;
 }
 
-struct Ring {
+// Bytes of a slot's side array: K scales, then V scales, T f32 each,
+// each run 16-byte aligned.
+__host__ __device__ constexpr uint32_t side_bytes(int tile_rows) {
+  return 2u * ((4u * tile_rows + 15u) & ~15u);
+}
+
+template <bool kSide>
+struct RingT {
   unsigned char* slots;        // depth slots of slot_bytes each, 128-byte aligned
   uint32_t slots_addr;         // the same as a shared-memory address
   uint32_t bars_addr;          // depth mbarriers
@@ -132,6 +149,14 @@ struct Ring {
   int depth;
   int tile_rows;
   uint32_t row_bytes, row_stride, plane_bytes, slot_size;
+  const float* ks;             // kSide: scale 0 of the streamed rows (K, V), or null
+  const float* vs;
+
+  // kSide: a slot's K scales (rows of the tile in order), V scales next
+  __device__ __forceinline__ const float* side(const unsigned char* slot) const {
+    return reinterpret_cast<const float*>(slot + 2 * plane_bytes);
+  }
+  __device__ __forceinline__ uint32_t side_stride() const { return side_bytes(tile_rows) / 2; }
 
   // Start the copies of tile i into slot i % depth. Called by every lane
   // of one warp.
@@ -142,8 +167,19 @@ struct Ring {
     const uint32_t slot = static_cast<uint32_t>(i % depth);
     const uint32_t bar = bars_addr + 8 * slot;
     const uint32_t dst = slots_addr + slot * slot_size;
-    if (lane == 0) mbar_expect_tx(bar, 2u * rows * row_bytes);
+    uint32_t side_copy = 0;   // bytes of one plane's scales: rows rounded up to 4
+    if constexpr (kSide) {
+      if (ks != nullptr) side_copy = 4u * ((rows + 3) & ~3);
+    }
+    if (lane == 0) mbar_expect_tx(bar, 2u * rows * row_bytes + 2u * side_copy);
     __syncwarp();
+    if constexpr (kSide) {
+      if (side_copy != 0 && lane == 31) {
+        const uint32_t sdst = dst + 2 * plane_bytes;
+        bulk_load(sdst, ks + first, side_copy, bar);
+        bulk_load(sdst + side_stride(), vs + first, side_copy, bar);
+      }
+    }
     if (row_stride == row_bytes) {
       // unpadded rows: a plane's tile is one copy
       if (lane < 2) {
@@ -162,11 +198,14 @@ struct Ring {
 
   // Set the ring up over rows [row0, row1) of the planes at k and v and
   // start the first depth - 1 tiles. Called by every thread of the block;
-  // `bars` holds kMaxDepth barriers; pad is 0 or kRowPad.
+  // `bars` holds kMaxDepth barriers; pad is a multiple of 16 (0 or
+  // kRowPad). kSide: ks_ / vs_ are the scales of row 0 of the planes
+  // (null: the slots' side arrays are left alone).
   __device__ __forceinline__ void init(unsigned char* smem, uint64_t* bars, int depth_,
                                        int tile_rows_, uint32_t row_bytes_, int pad,
                                        const unsigned char* k_, const unsigned char* v_,
-                                       int64_t row0_, int64_t row1_) {
+                                       int64_t row0_, int64_t row1_,
+                                       const float* ks_ = nullptr, const float* vs_ = nullptr) {
     slots = smem;
     slots_addr = smem_addr(smem);
     bars_addr = smem_addr(bars);
@@ -179,7 +218,9 @@ struct Ring {
     row_bytes = row_bytes_;
     row_stride = row_bytes_ + pad;
     plane_bytes = tile_rows_ * row_stride;
-    slot_size = 2 * plane_bytes;
+    slot_size = 2 * plane_bytes + (kSide ? side_bytes(tile_rows_) : 0u);
+    ks = ks_;
+    vs = vs_;
     ntiles = static_cast<int>((row1_ - row0_ + tile_rows_ - 1) / tile_rows_);
     if (threadIdx.x == 0) {
       for (int i = 0; i < depth; ++i) mbar_init(bars_addr + 8 * i, 1);
@@ -206,5 +247,7 @@ struct Ring {
     return slots + slot * slot_size;
   }
 };
+
+using Ring = RingT<false>;
 
 }  // namespace row_stream

@@ -4,16 +4,19 @@ plain PyTorch version beside it.
   K1 ``decode_attention``: single query over a bf16/f32 cache
      (``csrc/decode_attention.cu``);
   K2 ``decode_attention_int8``: single query over an int8 cache;
-  K3 ``decode_attention_int4``: single query over an int4 plane cache;
+  K3 ``decode_attention_int4``: single query over an int4 plane cache
+     (K2 and K3: ``csrc/decode_attention_quant.cu``, K1's design);
   K4 ``decode_attention_mq``: W window queries per row over the confirmed
      rows of any of the four caches plus the window rows as one causal
      tile: ``csrc/decode_attention_window.cu`` (tensor cores) for a bf16
-     cache at head width 64, ``csrc/decode_attention_fast.cu`` (with K2
-     and K3) for every other cache (``mq_kernel_for``).
+     cache at head width 64 and for the int8/int4 caches with bf16
+     queries at head width 64, ``csrc/decode_attention_fast.cu`` for the
+     rest (``mq_kernel_for``).
 
-K1 and the bf16 K4 stream whole cache rows through the ring of
-``csrc/row_stream.cuh`` and fold their partials in the same launch
-(``csrc/split_fold.cuh``): one launch a call.
+K1, K2, K3 and the tensor-core K4 stream whole cache rows through the
+ring of ``csrc/row_stream.cuh`` (the quantized caches' scales ride it
+too) and fold their partials in the same launch (``csrc/split_fold.cuh``):
+one launch a call.
 
 They port the TPU kernels of ``meshanything_tpu/ops/decode_attention.py``
 (K1-K3 ``_flash_decode_pipelined_kernel``, K4 ``_flash_decode_kernel``
@@ -25,7 +28,9 @@ is no other route between the two.
 Cache layout contract (shared with ``ops/kvcache.py`` and
 ``models/shape_opt.py``): one tensor (2, L, B, S, H*D) of values, K at
 index 0 and V at index 1, flat head rows; the quantized caches add
-scales (2, L, B, 1, S) f32. Only the live rows are read.
+scales (2, L, B, 1, S) f32. Only the live rows are read. On the card the
+quantized kernels that stream the scales need S % 4 == 0 (the port's
+caches pad S to 512).
 
 Numerics of the quantized tiers (the TPU kernels' contract): the K scale
 multiplies the f32 logits, the running sum is built from the unscaled
@@ -48,11 +53,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CACHE_FORMATS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int32: 3}
 _HEAD_DIMS = (8, 64)               # instantiated in both CUDA sources
 _MAX_WINDOW = 16                   # K4 is instantiated for W <= 16
-_TILE = 128                         # K2-K4 (csrc/decode_attention_fast.cu): rows per split unit
-_FAST_BLOCKS_PER_SM = 2             # K2-K4: this many blocks per SM
+_TILE = 128                         # K4 of csrc/decode_attention_fast.cu: rows per split unit
+_FAST_BLOCKS_PER_SM = 2             # K4 of csrc/decode_attention_fast.cu: blocks per SM
 K1_TILE = {torch.float32: 8, torch.bfloat16: 16}   # rows a tile of K1's ring, by dtype
 WINDOW_TILE = 16                    # rows a tile of the bf16 K4's ring
-_MAX_HEADS = 16                     # K1 and the bf16 K4: one warp a head
+QUANT_TILE = 32                     # rows a tile of K2, K3 and the int8/int4 tensor-core K4
+_MAX_HEADS = 16                     # the row-stream kernels: one warp a head
 _FOLD_COUNTERS = 65536              # int32 ticket counters a workspace: B * (1 + groups) of a call
 
 
@@ -215,6 +221,18 @@ def window_split_plan(batch: int, n_rows: int, num_sms: int) -> tuple[int, int]:
     return nsplit, fold_group(nsplit + 1)
 
 
+def quant_window_split_plan(batch: int, n_rows: int, num_sms: int) -> tuple[int, int]:
+    """(nsplit, group) of the int8/int4 tensor-core K4's grid (B, nsplit):
+    splits of the ``n_rows`` cache rows a base can reach (S - W) in tiles
+    of ``QUANT_TILE`` rows, at most one block an SM over the batch (one
+    wave), the last split of a row also taking the window tile. As for the
+    bf16 K4, a block takes its share of the tiles below base[b] on the
+    card, so the grid needs no read of ``base``."""
+    tiles = -(-n_rows // QUANT_TILE)
+    nsplit = max(1, min(tiles, num_sms // batch))
+    return nsplit, fold_group(nsplit)
+
+
 def decode_attention(q: torch.Tensor, kv_cache: torch.Tensor,
                      layer: int, cur_len: int) -> torch.Tensor:
     """Single-query attention of q (B, H, D) over rows [0, cur_len) of
@@ -341,30 +359,43 @@ def decode_attention_quant_reference(q: torch.Tensor, values: torch.Tensor,
 
 
 def _fast_kernel():
-    lib = _build.load("decode_attention_fast")
-    if lib.lib.mt_decode_attention_quant.argtypes is None:
-        fn = lib.lib.mt_decode_attention_quant
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 9
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fn = lib.lib.mt_decode_attention_mq
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 9
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.lib.mt_fast_error_string.argtypes = [ctypes.c_int]
-        lib.lib.mt_fast_error_string.restype = ctypes.c_char_p
-    return lib.lib
+    lib = _build.load("decode_attention_fast").lib
+    if lib.mt_decode_attention_mq.argtypes is None:
+        lib.mt_decode_attention_mq.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
+                                               + [ctypes.c_int64] * 9 + [ctypes.c_void_p])
+        lib.mt_decode_attention_mq.restype = ctypes.c_int
+        lib.mt_fast_error_string.argtypes = [ctypes.c_int]
+        lib.mt_fast_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _quant_kernel():
+    lib = _build.load("decode_attention_quant").lib
+    if lib.mt_decode_attention_quant.argtypes is None:
+        lib.mt_decode_attention_quant.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                                                  + [ctypes.c_int64] * 9 + [ctypes.c_void_p])
+        lib.mt_decode_attention_quant.restype = ctypes.c_int
+        lib.mt_quant_error_string.argtypes = [ctypes.c_int]
+        lib.mt_quant_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def fast_split_plan(batch: int, n_rows: int, num_sms: int) -> tuple[int, int]:
-    """(rows_per_split, nsplit) for K2-K4's grid (B, nsplit): about
-    ``_FAST_BLOCKS_PER_SM`` blocks per SM over ``n_rows`` rows, whole
-    128-row tiles per split, no empty split."""
+    """(rows_per_split, nsplit) for the grid (B, nsplit) of
+    ``csrc/decode_attention_fast.cu``'s K4: about ``_FAST_BLOCKS_PER_SM``
+    blocks per SM over ``n_rows`` rows, whole 128-row tiles per split, no
+    empty split."""
     tiles = -(-n_rows // _TILE)
     want = -(-_FAST_BLOCKS_PER_SM * num_sms // batch)
     nsplit = max(1, min(tiles, want))
     rows_per_split = -(-tiles // nsplit) * _TILE
     return rows_per_split, -(-n_rows // rows_per_split)
+
+
+def quant_split_plan(batch: int, cur_len: int, num_sms: int) -> tuple[int, int]:
+    """(nsplit, group) of K2's and K3's grid (B, nsplit): K1's plan
+    (``split_plan``) over tiles of ``QUANT_TILE`` rows."""
+    return split_plan(batch, cur_len, num_sms, QUANT_TILE)
 
 
 def _cuda_preflight(name: str, tensors, d: int) -> None:
@@ -374,10 +405,18 @@ def _cuda_preflight(name: str, tensors, d: int) -> None:
         raise ValueError(f"{name}: every tensor must be 16-byte aligned")
 
 
-def _raise_on(lib, err: int, name: str) -> None:
+def _raise_on(err: int, name: str, error_string) -> None:
     if err:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.mt_fast_error_string(err).decode()} (cudaError {err})")
+        raise RuntimeError(f"{name} kernel launch failed: {error_string(err).decode()} "
+                           f"(cudaError {err})")
+
+
+def _streamed_scales_check(name: str, s: int, h: int) -> None:
+    if s % 4:
+        raise ValueError(f"{name}: cache length {s} is not a multiple of 4 (the kernel copies "
+                         f"the scales in runs of 4 rows)")
+    if h > _MAX_HEADS:
+        raise ValueError(f"{name}: {h} heads; the kernel takes at most {_MAX_HEADS}")
 
 
 def _decode_attention_quant(q, values, scales, layer, cur_len, *, fmt, name, counted):
@@ -388,20 +427,20 @@ def _decode_attention_quant(q, values, scales, layer, cur_len, *, fmt, name, cou
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda tensors, not {q.device}")
     b, h, d = q.shape
-    _cuda_preflight(name, (q, values, scales), d)
-    lib = _fast_kernel()
     _, n_layers, _, s, _ = values.shape
-    rows_per_split, nsplit = fast_split_plan(b, cur_len, _num_sms(q.device.index))
+    _cuda_preflight(name, (q, values, scales), d)
+    _streamed_scales_check(name, s, h)
+    lib = _quant_kernel()
+    nsplit, group = quant_split_plan(b, cur_len, _num_sms(q.device.index))
+    stream = _stream_ptr(q.device)
+    o_part, ml_part, counters = fold_workspace(q.device, stream).pointers(b, nsplit, group, h, d)
     out = torch.empty_like(q)
-    o_part = torch.empty((b * h * nsplit, d), dtype=torch.float32, device=q.device)
-    ml_part = torch.empty((b * h * nsplit, 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.mt_decode_attention_quant(
-            q.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            o_part.data_ptr(), ml_part.data_ptr(), _CACHE_FORMATS[values.dtype],
-            _DTYPE_CODES[q.dtype], b, h, d, n_layers, s, layer, cur_len, rows_per_split, nsplit,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, err, name)
+            q.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(), o_part, ml_part,
+            counters, _CACHE_FORMATS[values.dtype], _DTYPE_CODES[q.dtype], b, h, d, n_layers, s,
+            layer, cur_len, nsplit, group, stream)
+    _raise_on(err, name, lib.mt_quant_error_string)
     counted.launches += 1
     return out
 
@@ -498,17 +537,27 @@ def decode_attention_mq_reference(q: torch.Tensor, kv: torch.Tensor,
     return _attend_reference(q, k, v, ks, vs, mask, p_terms)
 
 
-def mq_kernel_for(cache_dtype: torch.dtype, head_dim: int) -> str:
-    """Which of K4's two kernels takes a cache of ``cache_dtype`` at
-    ``head_dim``: ``"window"`` (``csrc/decode_attention_window.cu``: bf16
-    at head width 64, on tensor cores) or ``"tile_split"``
-    (``csrc/decode_attention_fast.cu``: every other cache format and the
-    small config's head width). Raises on what neither is built for."""
+def mq_kernel_for(cache_dtype: torch.dtype, head_dim: int, query_dtype: torch.dtype) -> str:
+    """Which of K4's kernels takes a cache of ``cache_dtype`` at
+    ``head_dim`` with queries of ``query_dtype``: ``"window"``
+    (``csrc/decode_attention_window.cu`` on tensor cores: a bf16 cache at
+    head width 64), ``"window_quant"`` (the same file's int8/int4
+    instances: bf16 queries at head width 64) or ``"tile_split"``
+    (``csrc/decode_attention_fast.cu``: the f32 cache, the quantized caches
+    with f32 queries and the small config's head width). Raises on what
+    none is built for."""
     if cache_dtype not in _CACHE_FORMATS:
         raise TypeError(f"cache dtype {cache_dtype} is none of {list(_CACHE_FORMATS)}")
+    if query_dtype not in _DTYPE_CODES:
+        raise TypeError(f"query dtype {query_dtype} is none of {list(_DTYPE_CODES)}")
     if head_dim not in _HEAD_DIMS:
         raise ValueError(f"head_dim {head_dim} not built; the kernels take {_HEAD_DIMS}")
-    return "window" if cache_dtype == torch.bfloat16 and head_dim == 64 else "tile_split"
+    if head_dim == 64 and query_dtype == torch.bfloat16:
+        if cache_dtype == torch.bfloat16:
+            return "window"
+        if cache_dtype in (torch.int8, torch.int32):
+            return "window_quant"
+    return "tile_split"
 
 
 def _window_kernel():
@@ -517,6 +566,9 @@ def _window_kernel():
         lib.mt_decode_attention_window.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 9
                                                    + [ctypes.c_void_p])
         lib.mt_decode_attention_window.restype = ctypes.c_int
+        lib.mt_decode_attention_window_quant.argtypes = (
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] + [ctypes.c_int64] * 9 + [ctypes.c_void_p])
+        lib.mt_decode_attention_window_quant.restype = ctypes.c_int
         lib.mt_window_error_string.argtypes = [ctypes.c_int]
         lib.mt_window_error_string.restype = ctypes.c_char_p
     return lib
@@ -545,50 +597,64 @@ def decode_attention_mq(q: torch.Tensor, kv: torch.Tensor, scales: Optional[torc
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_mq runs on cpu or cuda tensors, not {q.device}")
     b, w, h, d = q.shape
-    kernel = mq_kernel_for(kv.dtype, d)
+    kernel = mq_kernel_for(kv.dtype, d, q.dtype)
     base32 = base if base.dtype == torch.int32 else base.to(torch.int32)
     tensors = [t for t in (q, kv, scales, base32, win_k, win_v, win_ks, win_vs) if t is not None]
     _cuda_preflight("decode_attention_mq", tensors, d)
     _, n_layers, _, s, _ = kv.shape
     out = torch.empty_like(q)
     stream = _stream_ptr(q.device)
-    if kernel == "window":
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    if kernel in ("window", "window_quant"):
         if h > _MAX_HEADS:
-            raise ValueError(f"{h} heads: the bf16 window kernel takes at most {_MAX_HEADS}")
+            raise ValueError(f"{h} heads: the window kernel takes at most {_MAX_HEADS}")
         lib = _window_kernel()
-        nsplit, group = window_split_plan(b, max(1, s - w), _num_sms(q.device.index))
+        quant = kernel == "window_quant"
+        if quant:
+            _streamed_scales_check("decode_attention_mq", s, h)
+        plan = quant_window_split_plan if quant else window_split_plan
+        nsplit, group = plan(b, max(1, s - w), _num_sms(q.device.index))
+        blocks = nsplit if quant else nsplit + 1    # the bf16 kernel's window tile: a block
         o_part, ml_part, counters = fold_workspace(q.device, stream).pointers(
-            b, nsplit + 1, group, w * h, d)
+            b, blocks, group, w * h, d)
         with torch.cuda.device(q.device):
-            err = lib.mt_decode_attention_window(
-                q.data_ptr(), kv.data_ptr(), base32.data_ptr(), win_k.data_ptr(),
-                win_v.data_ptr(), out.data_ptr(), o_part, ml_part, counters, b, w, h, d,
-                n_layers, s, layer, nsplit, group, stream)
-        if err:
-            raise RuntimeError(f"decode_attention_mq kernel launch failed: "
-                               f"{lib.mt_window_error_string(err).decode()} (cudaError {err})")
+            if quant:
+                err = lib.mt_decode_attention_window_quant(
+                    q.data_ptr(), kv.data_ptr(), scales.data_ptr(), base32.data_ptr(),
+                    win_k.data_ptr(), win_v.data_ptr(), win_ks.data_ptr(), win_vs.data_ptr(),
+                    out.data_ptr(), o_part, ml_part, counters, _CACHE_FORMATS[kv.dtype], b, w, h,
+                    d, n_layers, s, layer, nsplit, group, stream)
+            else:
+                err = lib.mt_decode_attention_window(
+                    q.data_ptr(), kv.data_ptr(), base32.data_ptr(), win_k.data_ptr(),
+                    win_v.data_ptr(), out.data_ptr(), o_part, ml_part, counters, b, w, h, d,
+                    n_layers, s, layer, nsplit, group, stream)
+        _raise_on(err, "decode_attention_mq", lib.mt_window_error_string)
         decode_attention_mq.launches += 1
-        decode_attention_mq.window_launches += 1
+        if quant:
+            decode_attention_mq.quant_window_launches += 1
+        else:
+            decode_attention_mq.window_launches += 1
         return out
     lib = _fast_kernel()
     rows_per_split, nsplit = fast_split_plan(b, s, _num_sms(q.device.index))
     parts = b * w * h * (nsplit + 1)
     o_part = torch.empty((parts, d), dtype=torch.float32, device=q.device)
     ml_part = torch.empty((parts, 2), dtype=torch.float32, device=q.device)
-
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
     with torch.cuda.device(q.device):
         err = lib.mt_decode_attention_mq(
             q.data_ptr(), kv.data_ptr(), ptr(scales), base32.data_ptr(), win_k.data_ptr(),
             win_v.data_ptr(), ptr(win_ks), ptr(win_vs), out.data_ptr(), o_part.data_ptr(),
             ml_part.data_ptr(), _CACHE_FORMATS[kv.dtype], _DTYPE_CODES[q.dtype], b, w, h, d,
             n_layers, s, layer, rows_per_split, nsplit, stream)
-    _raise_on(lib, err, "decode_attention_mq")
+    _raise_on(err, "decode_attention_mq", lib.mt_fast_error_string)
     decode_attention_mq.launches += 1
     return out
 
 
-decode_attention_mq.launches = 0            # of either kernel
-decode_attention_mq.window_launches = 0     # of them, the bf16 tensor-core kernel's
+decode_attention_mq.launches = 0                # of any of its kernels
+decode_attention_mq.window_launches = 0         # of them, the bf16 tensor-core kernel's
+decode_attention_mq.quant_window_launches = 0   # and the int8/int4 tensor-core kernel's

@@ -1,7 +1,8 @@
 """K2 and K3 of the PyTorch port: the quantized caches' codecs and the
 plain versions against the JAX package's Pallas kernels (interpret mode,
-``pipelined=True``), the split plan, and the kernels themselves where a
-card is present (K4: test_torch_mq_attention.py)."""
+``pipelined=True``), the split plans, a mirror of the kernels' int4
+unpacking, and the kernels themselves where a card is present (K4:
+test_torch_mq_attention.py)."""
 import numpy as np
 import pytest
 import torch
@@ -12,10 +13,14 @@ from meshanything_tpu.ops import decode_attention as jda
 from meshanything_tpu.ops import kvcache as jkv
 from meshanything_tpu_torch.ops import kvcache as kvc
 from meshanything_tpu_torch.ops.decode_attention import (
+    QUANT_TILE,
+    FoldWorkspace,
     decode_attention_int4,
     decode_attention_int8,
     decode_attention_quant_reference,
     fast_split_plan,
+    quant_split_plan,
+    split_bounds,
 )
 
 B, H, D, S, L, CHUNK = 2, 4, 64, 256, 2, 128
@@ -140,6 +145,147 @@ def test_fast_split_plan_covers_the_rows(batch, n_rows):
     assert (nsplit - 1) * rows < n_rows <= nsplit * rows
 
 
+@pytest.mark.parametrize("batch", [1, 2, 16])
+@pytest.mark.parametrize("cur_len", [1, 257, 7459, 7680])
+def test_quant_split_plan_covers_the_rows(batch, cur_len):
+    """K2's and K3's grid (B, nsplit): splits of whole QUANT_TILE-row
+    tiles that cover [0, cur_len) once with no empty split, about one
+    block an SM, and a fold workspace whose counters hold the call at the
+    350M width (16 heads of 64)."""
+    nsplit, group = quant_split_plan(batch, cur_len, num_sms=132)
+    bounds = split_bounds(cur_len, QUANT_TILE, nsplit)
+    assert all(r1 > r0 for r0, r1 in bounds)
+    assert bounds[0][0] == 0 and bounds[-1][1] == cur_len
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(r0 % QUANT_TILE == 0 for r0, _ in bounds)
+    assert batch * nsplit <= max(132, batch) and 1 <= group <= nsplit
+    ws = FoldWorkspace(torch.device("cpu"))
+    o_part, ml_part, counters = ws.pointers(batch, nsplit, group, 16, 64)
+    ngroups = -(-nsplit // group)
+    assert batch * (1 + ngroups) <= ws.counters.numel()
+    assert ml_part - o_part == 4 * batch * (nsplit + ngroups) * 16 * 64
+
+
+# ---------------------------------------------------------------------------
+# the kernels' int4 unpacking (csrc/quant_codes.cuh), mirrored bit for bit
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint64 arrays holding 32-bit words."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    out = np.zeros_like(x)
+    for i in range(4):
+        out |= src[(sel >> (4 * i)) & 7] << (8 * i)
+    return out
+
+
+def _words4_to_codes(w):
+    """quant_codes::words4_to_codes: four words -> eight words of codes
+    biased by 8, out[p] byte j = nibble p of word j as code + 8."""
+    ab01 = _byte_perm(w[0], w[1], 0x5140)
+    cd01 = _byte_perm(w[2], w[3], 0x5140)
+    ab23 = _byte_perm(w[0], w[1], 0x7362)
+    cd23 = _byte_perm(w[2], w[3], 0x7362)
+    y = [_byte_perm(ab01, cd01, 0x5410), _byte_perm(ab01, cd01, 0x7632),
+         _byte_perm(ab23, cd23, 0x5410), _byte_perm(ab23, cd23, 0x7632)]
+    out = []
+    for k in range(4):
+        out += [(y[k] & 0x0F0F0F0F) ^ 0x08080808, ((y[k] >> 4) & 0x0F0F0F0F) ^ 0x08080808]
+    return out
+
+
+def _stage_int4(words):
+    """quant_codes::unpack_int4_tile on rows of plane words (..., nw) ->
+    the bytes (..., 8 nw) it writes, code + 8 each: column p*nw + j + i is
+    byte i of out[p] of the four words at j."""
+    nw = words.shape[-1]
+    w = words.astype(np.int64) & 0xFFFFFFFF
+    staged = np.zeros(words.shape[:-1] + (8 * nw,), np.uint8)
+    for j in range(0, nw, 4):
+        out = _words4_to_codes([w[..., j + i] for i in range(4)])
+        for p in range(8):
+            as_bytes = np.stack([(out[p] >> (8 * i)) & 0xFF for i in range(4)], axis=-1)
+            staged[..., p * nw + j:p * nw + j + 4] = as_bytes
+    return staged
+
+
+def _head_words(h, head_dim, hd):
+    """(nibble, word) of each of head h's columns in a plane-packed row."""
+    nw = hd // 8
+    cols = h * head_dim + np.arange(head_dim)
+    return cols // nw, cols % nw
+
+
+def test_int8_code_widening_mirror_is_exact():
+    """quant_codes::codes02_to_bf16x2, which widens int8 codes into the
+    tensor cores' bf16 pairs, mirrored on every byte: 0x4300 | (c & 0x7f)
+    is 128 + (c & 127) and 0x4300 | (c & 0x80) is 128 or 256, so their
+    bf16 difference is c exactly. And codes4_to_f32 (CUDA cores): the
+    biased byte in the low mantissa of 2^23, less 2^23 + 128."""
+    c = np.arange(-128, 128)
+    u = c.astype(np.int64) & 0xFF
+    lo = torch.from_numpy((0x4300 | (u & 0x7F)).astype(np.int16)).view(torch.bfloat16)
+    hi = torch.from_numpy((0x4300 | (u & 0x80)).astype(np.int16)).view(torch.bfloat16)
+    np.testing.assert_array_equal((lo - hi).float().numpy(), c)   # bf16 subtraction, exact
+    f32 = torch.from_numpy((0x4B000000 | (u ^ 0x80)).astype(np.int32)).view(torch.float32)
+    np.testing.assert_array_equal((f32 - 8388736.0).numpy(), c)
+
+
+@pytest.mark.parametrize("heads,head_dim", [(16, 64), (4, 8)])
+def test_int4_staging_mirror_matches_unpack(heads, head_dim):
+    """The kernels unpack an int4 tile once into a byte a code, biased by
+    8, in the int8 row layout. Mirrored bit for bit on seeded words (every
+    nibble, -8 included), the staged bytes less 8 equal
+    ops/kvcache.py::unpack_int4 and JAX's in-kernel _unpack4, and the
+    widening of a pair of them to bf16 (0x4300 | u, less 136) gives the
+    codes; head h's columns are nibble h*D // nw .. of words (h*D) % nw ..:
+    at the 350M width nibble h // 2 of words 64 * (h % 2) .. + 63, eight
+    heads a word."""
+    hd = heads * head_dim
+    rng = np.random.default_rng(hd)
+    words = rng.integers(-2 ** 31, 2 ** 31, size=(5, hd // 8), dtype=np.int64).astype(np.int32)
+    staged = _stage_int4(words).astype(np.int32) - 8
+    want = kvc.unpack_int4(torch.from_numpy(words)).numpy()
+    np.testing.assert_array_equal(staged, want)
+    # quant_codes::biased4_02_to_bf16x2 on one staged byte: bf16 bits 0x4300 | u less 136
+    as_bf16 = torch.from_numpy((0x4300 | (staged + 8)).astype(np.int16)).view(torch.bfloat16)
+    np.testing.assert_array_equal((as_bf16.float() - 136.0).numpy(), want)
+    np.testing.assert_array_equal(np.asarray(jda._unpack4(jnp.asarray(words), jnp.int32)), want)
+    u = words.astype(np.int64) & 0xFFFFFFFF
+    for h in range(heads):
+        nib, word = _head_words(h, head_dim, hd)
+        codes = (u[:, word] >> (4 * nib)) & 15
+        codes = codes - ((codes & 8) << 1)
+        np.testing.assert_array_equal(staged[:, h * head_dim:(h + 1) * head_dim], codes)
+        if (heads, head_dim) == (16, 64):
+            assert set(nib) == {h // 2} and list(word) == list(64 * (h % 2) + np.arange(64))
+
+
+@pytest.mark.parametrize("variant", ["kernel", "stream_only", "no_unpack", "no_convert",
+                                     "no_fold", "long_splits"])
+def test_quant_breakdown_variants_apply_to_the_kernels(variant):
+    """Every variant of tools/quant_breakdown.py applies to the current
+    sources it names (K2/K3 and the window kernel's int8/int4 instances):
+    the constants it changes are there, at their values."""
+    from meshanything_tpu_torch.ops import _build
+    from meshanything_tpu_torch.ops.decode_attention import quant_window_split_plan
+    from meshanything_tpu_torch.tools.quant_breakdown import (
+        PLAN_MIN_TILES, SOURCES, VARIANTS, _capped, variant_source)
+
+    changed_any = False
+    for lib in SOURCES:
+        with open(f"{_build.CSRC_DIR}/{lib}.cu") as fh:
+            source = fh.read()
+        changed_any |= variant_source(source, variant, lib) != source
+    assert changed_any == (VARIANTS[variant] != [])
+    with pytest.raises(ValueError):
+        variant_source("no constants here", "stream_only", SOURCES[0])
+    if variant in PLAN_MIN_TILES:     # a launch-plan variant: at least that many tiles a split
+        plan = _capped(quant_window_split_plan, PLAN_MIN_TILES[variant])
+        nsplit, _ = plan(1, 7450, 132)
+        assert nsplit == -(-233 // PLAN_MIN_TILES[variant]) and plan(16, 7450, 132)[0] == 8
+
+
 # ---------------------------------------------------------------------------
 # on the card
 
@@ -167,3 +313,29 @@ def test_k2_k3_kernel_matches_plain_on_the_card(bits):
             want = decode_attention_quant_reference(q, _t(values).cuda(), _t(scales).cuda(), 1,
                                                     cur_len)
             torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", ["int8", "int4"])
+def test_k2_k3_kernel_at_head_width_8_on_the_card(bits):
+    """The small config's head width (4 heads of 8) through the same
+    kernel, with NaN scales and garbage codes past cur_len."""
+    _needs_card()
+    rng = np.random.default_rng(8)
+    heads, hd = 4, 8
+    rows = (rng.normal(size=(2, L, B, S, heads * hd)) * 0.5).astype(np.float32)
+    codes, scale = QROWS[bits][0](torch.from_numpy(rows))
+    values = codes.cuda()
+    scales = scale.transpose(-1, -2).contiguous().cuda()
+    port = decode_attention_int8 if bits == "int8" else decode_attention_int4
+    for dtype in ("float32", "bfloat16"):
+        q = _t(_q(rng, (B, heads, hd), dtype), dtype).cuda()
+        for cur_len in CUR_LENS:
+            got = port(q, values, scales, 1, cur_len)
+            poisoned_scales = scales.clone()
+            poisoned_scales[:, :, :, :, cur_len:] = float("nan")
+            again = port(q, values, poisoned_scales, 1, cur_len)
+            want = decode_attention_quant_reference(q, values, scales, 1, cur_len)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+            assert torch.equal(got, again)

@@ -12,6 +12,7 @@ from meshanything_tpu.ops import decode_attention as jda
 from meshanything_tpu.ops import kvcache as jkv
 from meshanything_tpu_torch.ops import kvcache as kvc
 from meshanything_tpu_torch.ops.decode_attention import (
+    QUANT_TILE,
     WINDOW_TILE,
     decode_attention_int4,
     decode_attention_int8,
@@ -19,6 +20,7 @@ from meshanything_tpu_torch.ops.decode_attention import (
     decode_attention_mq_reference,
     decode_attention_quant_reference,
     mq_kernel_for,
+    quant_window_split_plan,
     split_bounds,
     window_split_plan,
 )
@@ -82,7 +84,7 @@ def _port_mq(q, kv, scales, layer, base, win, win_s, dtype, cache_dtype):
         *(None, None) if win_s is None else (_t(win_s[0]), _t(win_s[1])))
 
 
-@pytest.mark.parametrize("w", [1, 4, 8])
+@pytest.mark.parametrize("w", [1, 4, 8, 16])
 @pytest.mark.parametrize("kind,dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
                                         ("int8", "float32"), ("int8", "bfloat16"),
                                         ("int4", "float32"), ("int4", "bfloat16")])
@@ -224,20 +226,46 @@ def test_window_split_plan_covers_the_confirmed_rows(batch, n_rows):
         assert nsplit + 1 >= 132
 
 
-@pytest.mark.parametrize("dtype,head_dim,want", [
-    (torch.bfloat16, 64, "window"), (torch.bfloat16, 8, "tile_split"),
-    (torch.float32, 64, "tile_split"), (torch.float32, 8, "tile_split"),
-    (torch.int8, 64, "tile_split"), (torch.int32, 64, "tile_split"),
-    (torch.float16, 64, TypeError), (torch.int64, 8, TypeError),
-    (torch.bfloat16, 32, ValueError), (torch.int8, 128, ValueError)])
-def test_k4_kernel_dispatch_table(dtype, head_dim, want):
-    """(cache dtype, head width) -> kernel; what neither kernel is built
-    for raises instead of trying one and falling back to the other."""
+@pytest.mark.parametrize("dtype,head_dim,qdtype,want", [
+    (torch.bfloat16, 64, torch.bfloat16, "window"), (torch.bfloat16, 8, torch.bfloat16, "tile_split"),
+    (torch.float32, 64, torch.float32, "tile_split"), (torch.float32, 8, torch.float32, "tile_split"),
+    (torch.int8, 64, torch.float32, "tile_split"), (torch.int32, 64, torch.float32, "tile_split"),
+    (torch.float16, 64, torch.bfloat16, TypeError), (torch.int64, 8, torch.float32, TypeError),
+    (torch.bfloat16, 32, torch.bfloat16, ValueError), (torch.int8, 128, torch.bfloat16, ValueError),
+    (torch.int8, 64, torch.bfloat16, "window_quant"), (torch.int32, 64, torch.bfloat16, "window_quant"),
+    (torch.int8, 8, torch.bfloat16, "tile_split"), (torch.int32, 8, torch.bfloat16, "tile_split"),
+    (torch.int8, 64, torch.float16, TypeError)])
+def test_k4_kernel_dispatch_table(dtype, head_dim, qdtype, want):
+    """(cache dtype, head width, query dtype) -> kernel: the tensor-core
+    kernel takes bf16 queries at head width 64 over the bf16, int8 and
+    int4 caches; what no kernel is built for raises instead of trying one
+    and falling back to another."""
     if isinstance(want, str):
-        assert mq_kernel_for(dtype, head_dim) == want
+        assert mq_kernel_for(dtype, head_dim, qdtype) == want
     else:
         with pytest.raises(want):
-            mq_kernel_for(dtype, head_dim)
+            mq_kernel_for(dtype, head_dim, qdtype)
+
+
+@pytest.mark.parametrize("batch,n_rows", [(1, 7672), (1, 7664), (1, 300), (2, 7672), (16, 7672),
+                                          (16, 100)])
+def test_quant_window_split_plan_covers_the_confirmed_rows(batch, n_rows):
+    """The int8/int4 tensor-core K4's grid (B, nsplit), the window tile in
+    the last split: one wave (at most one block an SM over the batch); for
+    any base[b] up to n_rows the splits cover [0, base[b]) once in whole
+    QUANT_TILE-row tiles, and with base at its end no split is empty."""
+    nsplit, group = quant_window_split_plan(batch, n_rows, num_sms=132)
+    assert nsplit >= 1 and 1 <= group <= nsplit
+    assert batch * nsplit <= max(132, batch)
+    for base in {n_rows, max(1, n_rows // 2), max(1, n_rows - 33), 1}:
+        live = [(r0, r1) for r0, r1 in split_bounds(base, QUANT_TILE, nsplit) if r1 > r0]
+        assert live[0][0] == 0 and live[-1][1] == base
+        assert all(r0 % QUANT_TILE == 0 for r0, _ in live)
+        assert all(a[1] == b[0] for a, b in zip(live, live[1:]))
+        if base == n_rows:
+            assert len(live) == nsplit
+    if batch == 16 and n_rows == 7672:
+        assert nsplit == 8          # 128 blocks: one wave on 132 SMs
 
 
 def test_k4_row_bound_does_not_change_the_cpu_result():
@@ -266,7 +294,8 @@ def _needs_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
-                                        ("int8", "bfloat16"), ("int4", "bfloat16")])
+                                        ("int8", "bfloat16"), ("int4", "bfloat16"),
+                                        ("int8", "float32"), ("int4", "float32")])
 def test_k4_kernel_matches_plain_on_the_card(kind, dtype):
     _needs_card()
     rng = np.random.default_rng(5)
@@ -279,9 +308,11 @@ def test_k4_kernel_matches_plain_on_the_card(kind, dtype):
                 torch.tensor([1, 200]).cuda(), _t(win[0], cache_dtype).cuda(),
                 _t(win[1], cache_dtype).cuda(),
                 *((None, None) if win_s is None else (_t(win_s[0]).cuda(), _t(win_s[1]).cuda())))
-        before = decode_attention_mq.launches
+        before = (decode_attention_mq.launches, decode_attention_mq.quant_window_launches)
         got = decode_attention_mq(*args)
         torch.cuda.synchronize()
-        assert decode_attention_mq.launches == before + 1
+        quant_route = mq_kernel_for(args[1].dtype, D, args[0].dtype) == "window_quant"
+        assert (decode_attention_mq.launches, decode_attention_mq.quant_window_launches) == (
+            before[0] + 1, before[1] + quant_route)
         want = decode_attention_mq_reference(*args)
         torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])

@@ -373,27 +373,35 @@ def test_tools_refuse_a_missing_card():
 def test_attn_compare_child_program_compiles():
     """The comparison tool runs each tree in a process of its own from a
     program text that times K1-K4 through the tree's own smoke phases and
-    runs the two CLI cases, and pairs the four runs' readings a kernel and
-    batch: each tree's in the order made, the ratio of their sums."""
+    its own K2-K4 grid (one source for both trees) and runs the CLI cases
+    asked for, and pairs the four runs' readings a kernel and shape: each
+    tree's in the order made, the ratio of their means."""
     from meshanything_tpu_torch.tools import attn_compare
 
-    program = attn_compare._RUN.format(root="/some/checkout")
+    program = attn_compare.child_program("/some/checkout", ["exact_pc", "F3"])
     compile(program, "attn_compare child", "exec")
-    for needle in ("'/some/checkout'", "cs.time_k1(", "cs.time_fast(", '"--lookahead", "8"'):
+    for needle in ("'/some/checkout'", "cs.time_k1(", "cs.time_fast(", "def quant_grid(",
+                   "quant_grid(torch, da, card)", "'--lookahead', '8'"):
         assert needle in program
+    assert "meshanything_tpu_torch" not in attn_compare.inspect.getsource(
+        attn_compare.quant_grid)       # it runs in the other tree as it is
 
     def run(label, k1, k4):
         rec = {"bound_ms": 0.1, "card": "card", "library_ms": 0.2 if label == "this" else None}
-        return label, {("k1", 1): {**rec, "ms": k1}, ("k4_bfloat16", 16): {**rec, "ms": k4}}
+        return label, {("k1", 1, 7459, 1): {**rec, "ms": k1},
+                       ("k4_int8", 16, 300, 16): {**rec, "ms": k4}}
 
     out = attn_compare.summarize([run("other", 4.0, 9.0), run("this", 1.0, 3.0),
                                   run("this", 3.0, 3.0), run("other", 4.0, 3.0)])
-    assert [(r["kernel"], r["batch"]) for r in out] == [("k1", 1), ("k4_bfloat16", 16)]
+    assert [(r["kernel"], r["batch"], r["cur_len"], r["window"]) for r in out] == [
+        ("k1", 1, 7459, 1), ("k4_int8", 16, 300, 16)]
     assert out[0]["other_ms"] == [4.0, 4.0] and out[0]["this_ms"] == [1.0, 3.0]
     assert out[0]["other_over_this"] == 2.0 and out[1]["other_over_this"] == 2.0
     assert out[0]["library_ms"] == 0.2 and out[0]["card"] == "card"
     with pytest.raises(SystemExit):
         attn_compare.main([])          # the other tree's root is required
+    with pytest.raises(SystemExit):
+        attn_compare.main(["/some/checkout", "--cli", "F9"])
 
 
 def _need_card():
