@@ -39,6 +39,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
      and 16, each captured in a CUDA graph and replayed 20 times: every
      replay must equal the eager result bit for bit (the fold sums in
      split order and leaves its ticket counters at zero);
+  5b. device_length: K1 (bf16 and f32), K2 and K3 called as the decode
+     step calls them, the live length a 0-d int32 tensor that the kernel
+     reads on the card and the grid planned for the whole cache, are
+     bit-equal to the call planned for the length (an int) at every
+     cur_len from 1 to 600 and one row either side of every tile edge up
+     to S, at B 1, 2 and 16, and within tolerance of the plain version
+     called with the device length; copies of the two sources that plan
+     the splits from the bound instead (built beside the kernels) must
+     fail that sweep;
   6. K1-K4 and their plain versions timed with CUDA events at cur_len
      7459 / base 7450 (device time of CUDA-graph replays; K1 also eager),
      with the one PyTorch call that computes the same function where
@@ -82,7 +91,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
      and each run must launch exactly its kernel, 24 times per decode step
      or window forward (K5: once a decode step), and no other kernel, and
      return no error record; F3's K4 launches must all be the bf16
-     tensor-core kernel's, F1's and F2's the int8/int4 one's;
+     tensor-core kernel's, F1's and F2's the int8/int4 one's. Every run
+     but M1's and M2's decodes through CUDA-graph replays: the wrappers
+     launch in each graph's warm-up step and capture (24 each), the graph
+     does the rest, one replay a decode step or window forward;
+  8a. graph_loop: the CLI runs of phase 8 but exact_meshes (its tier is
+     exact_pc's) decode every batch a second time with the eager loop on
+     the same model and input, and the two
+     token streams must be identical (seconds a mesh of both, capture
+     apart); a whole exact step at the full width captured and replayed
+     20 times bit-equal to the same step run eagerly on a twin state, then
+     traced over 24 replays (kernels a step, busy share); the sampled
+     single-token and window loops on the small config, replayed against
+     eager for one seed (``sampled_eager`` where the torch cannot register
+     the generator); the exact tier at the full 800 faces, B=1, beside
+     ``bwprobe.exact_floor_seconds``;
   9. agreement on a small input: the small config on the card (through
      the kernels) against the same weights on the CPU (plain versions),
      exact tier, fast tiers and megakernel, in f32: tokens and coordinates
@@ -283,9 +306,11 @@ def time_k1(torch, da, card: str) -> dict:
         q = torch.randn((batch, H, D), generator=gen, device="cuda", dtype=torch.bfloat16)
         heads = [tuple(kv[p, i, :, :cur].view(batch, cur, H, D).transpose(1, 2) for p in (0, 1))
                  for i in range(L)]
-        sweeps = {which: (lambda fn=fn: [fn(q, kv, i, cur) for i in range(L)])
-                  for which, fn in (("kernel", da.decode_attention),
-                                    ("plain", da.decode_attention_reference))}
+        # as the decode step calls it: the length on the device, the grid planned for S
+        length = torch.tensor(cur, dtype=torch.int32, device="cuda")
+        sweeps = {"kernel": lambda: [da.decode_attention(q, kv, i, length) for i in range(L)],
+                  "plain": lambda: [da.decode_attention_reference(q, kv, i, cur)
+                                    for i in range(L)]}
         sweeps["library"] = lambda: [sdpa(q[:, :, None], k, v) for k, v in heads]
         t = _time_sweeps(torch, sweeps, L)
         live_bytes = 2 * batch * cur * H * D * 2
@@ -293,7 +318,8 @@ def time_k1(torch, da, card: str) -> dict:
         t["bound_ms"], t["bound_by"] = bound(live_bytes + 2 * q.numel() * 2,
                                              4 * batch * cur * H * D, "bfloat16")
         times[batch] = t
-        emit("k1_time", batch=batch, cur_len=cur, dtype="bfloat16", **t,
+        emit("k1_time", batch=batch, cur_len=cur, cur_len_on_device=True, grid_planned_for=S,
+             dtype="bfloat16", **t,
              live_kv_bytes=live_bytes, kernel_gb_per_s=live_bytes / t["ms"] / 1e6, card=card)
         del kv, q, heads, sweeps
         torch.cuda.empty_cache()
@@ -538,6 +564,138 @@ def check_graph_replays(torch, da, replays: int = 20) -> None:
         raise AssertionError(f"graph replays differ from the eager call: {failures}")
 
 
+# The device-length kernels (K1, K2, K3) read the live length on the card
+# and plan the splits inside a grid planned for a bound: a copy that plans
+# from the bound instead must fail the sweep below (phase device_length).
+PLAN_FROM_BOUND = ("const int64_t plan_len = cur_len;", "const int64_t plan_len = a.max_len;")
+DEVICE_LEN_LIBS = ("decode_attention", "decode_attention_quant")
+DEVICE_LEN_BATCHES = (1, 2, 16)
+
+
+def build_plan_from_bound(lib: str) -> str:
+    """nvcc of ``csrc/<lib>.cu`` with the live plan taken from the bound
+    (PLAN_FROM_BOUND) into the build directory; returns the library."""
+    from meshanything_tpu_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC_DIR, lib + ".cu")) as fh:
+        source = fh.read()
+    if PLAN_FROM_BOUND[0] not in source:
+        raise AssertionError(f"{lib}.cu has no {PLAN_FROM_BOUND[0]!r} to change")
+    out_dir = os.path.join(_build.BUILD_DIR, "plan_from_bound")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, lib + ".cu")
+    with open(path, "w") as fh:
+        fh.write(source.replace(*PLAN_FROM_BOUND))
+    so = os.path.join(out_dir, lib + ".so")
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
+                           "-o", so, path], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on the plan-from-bound copy of {lib}:\n{proc.stderr}")
+    return so
+
+
+def _length_sweep(tile: int, batch: int, sms: int, short: int = 600) -> list:
+    """cur_len of the device-length sweep: every length up to ``short``,
+    one tile on either side of every tile edge up to S, and around the
+    ``sms // batch`` tiles where the plan stops growing."""
+    lens = set(range(1, short + 1))
+    for edge in range(tile, S + 1, tile):
+        lens.update((edge - 1, edge, edge + 1))
+    edge = (sms // batch) * tile
+    lens.update((edge - tile, edge - 1, edge, edge + 1, edge + tile))
+    return sorted(n for n in lens if 1 <= n <= S)
+
+
+def _mismatches(torch, call, lens) -> list:
+    """The lengths at which ``call(length)`` with a 0-d int32 device length
+    (grid planned for S) differs in any bit from ``call(n)`` with the int
+    (grid planned for n, as the kernel was called by value)."""
+    length = torch.empty((), dtype=torch.int32, device="cuda")
+    differ = []
+    for n in lens:
+        length.fill_(n)
+        differ.append((call(length) != call(n)).any())
+    flags = torch.stack(differ).tolist()
+    return [n for n, bad in zip(lens, flags) if bad]
+
+
+def _device_length_cases(torch, da, gen, batch: int) -> dict:
+    """{kernel: (tile, call(length), plain(length), held(out, plain))} at
+    the 350M width over two-layer caches of length S: K1 over bf16 and
+    f32, K2 and K3 with bf16 queries; ``held`` -> (max abs err, within)."""
+    cases = {}
+    for name in ("bfloat16", "float32"):
+        dtype = getattr(torch, name)
+        kv = torch.randn((2, 2, batch, S, H * D), generator=gen, device="cuda", dtype=dtype)
+        q = torch.randn((batch, H, D), generator=gen, device="cuda", dtype=dtype)
+        cases[f"k1_{name}"] = (
+            da.K1_TILE[dtype], lambda n, q=q, kv=kv: da.decode_attention(q, kv, 1, n),
+            lambda n, q=q, kv=kv: da.decode_attention_reference(q, kv, 1, n, S),
+            lambda out, plain, tol=TOL[name]: _close(out, plain, tol))
+    q = torch.randn((batch, H, D), generator=gen, device="cuda").bfloat16()
+    for bits, fn in ((8, da.decode_attention_int8), (4, da.decode_attention_int4)):
+        values, scales, _, _ = _replay_quant_cache(torch, gen, bits, batch)
+        cases["k2" if bits == 8 else "k3"] = (
+            da.QUANT_TILE, lambda n, fn=fn, v=values, sc=scales: fn(q, v, sc, 1, n),
+            lambda n, v=values, sc=scales: da.decode_attention_quant_reference(q, v, sc, 1, n, S),
+            lambda out, plain: _held(out, plain, False)[:2])
+    return cases
+
+
+def check_device_length(torch, da, mutated: dict) -> None:
+    """Phase 5b: K1 (bf16 and f32 caches), K2 and K3 with the live length
+    read on the device and the grid planned for the whole cache, as the
+    decode step calls them, are bit-equal to the call planned for the
+    length (the int call) at every cur_len of ``_length_sweep``, at B 1, 2
+    and 16, and within their tolerance of the plain version called with
+    the same device length. Then the copies that plan from the bound
+    (``mutated``: {library: path}) replace the kernels and the same sweep
+    up to 600 rows must find each kernel out at some batch."""
+    import ctypes
+
+    from meshanything_tpu_torch.ops import _build
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    sms = da._num_sms(0)
+    failures, caught = [], {}
+    for batch in DEVICE_LEN_BATCHES:
+        cases = _device_length_cases(torch, da, gen, batch)
+        for name, (tile, call, plain, held) in cases.items():
+            lens = _length_sweep(tile, batch, sms)
+            bad = _mismatches(torch, call, lens)
+            worst, off = 0.0, []
+            for n in CUR_LENS:
+                length = torch.tensor(n, dtype=torch.int32, device="cuda")
+                err, ok = held(call(length), plain(length))
+                worst = max(worst, err)
+                if not ok:
+                    off.append(n)
+            emit("device_length", kernel=name, batch=batch, lengths=len(lens),
+                 bit_equal_to_int_call=len(lens) - len(bad), mismatches=bad[:20],
+                 max_abs_err_vs_plain=worst, plain_lengths=list(CUR_LENS),
+                 outside_tolerance=off, ok=not (bad or off))
+            if bad or off:
+                failures.append((name, batch))
+        if mutated:
+            saved = {lib: _build._loaded[lib] for lib in mutated}
+            for lib, so in mutated.items():
+                _build._loaded[lib] = _build.KernelLibrary(ctypes.CDLL(so), so, True, 0.0, "")
+            try:
+                for name, (_, call, _, _) in cases.items():
+                    bad = _mismatches(torch, call, list(range(1, 601)))
+                    caught[name] = caught.get(name, 0) + len(bad)
+                    emit("device_length_plan_from_bound", kernel=name, batch=batch,
+                         lengths=600, mismatches=len(bad), first=bad[:10])
+            finally:
+                _build._loaded.update(saved)
+        del cases
+        torch.cuda.empty_cache()
+    missed = [name for name, n in caught.items() if n == 0]
+    if failures or missed:
+        raise AssertionError(f"device-length calls differ from the int call or the plain "
+                             f"version: {failures}; the plan-from-bound copy passed for {missed}")
+
+
 def time_fast(torch, da, card: str) -> dict:
     """Phase 6 for K2, K3 and K4 (W=8): ms per call at cur_len 7459 /
     base 7450, cycling the 24 layers; GB/s of the live packed bytes (codes
@@ -571,8 +729,10 @@ def time_fast(torch, da, card: str) -> dict:
             cases = []
             if kind != "bfloat16":
                 single = da.decode_attention_int8 if kind == "int8" else da.decode_attention_int4
+                # as the decode step calls it: the length on the device, the grid planned for S
+                length = torch.tensor(cur, dtype=torch.int32, device="cuda")
                 cases.append(("k2" if kind == "int8" else "k3", cur, {
-                    "kernel": lambda f=single: [f(q1, kv, scales, i, cur) for i in range(L)],
+                    "kernel": lambda f=single: [f(q1, kv, scales, i, length) for i in range(L)],
                     "plain": lambda: [da.decode_attention_quant_reference(q1, kv, scales, i, cur)
                                       for i in range(L)]}))
             mq_args = (kv, scales)
@@ -604,6 +764,7 @@ def time_fast(torch, da, card: str) -> dict:
                     moved, 4 * batch * seen * H * D, "bfloat16" if kind == "bfloat16" else "int8")
                 times.setdefault(name, {})[batch] = t
                 emit("fast_time", kernel=name, batch=batch, rows=rows,
+                     cur_len_on_device=name in ("k2", "k3"),
                      window=w if name.startswith("k4") else 1, query_dtype="bfloat16", **t,
                      live_bytes=live_bytes, kernel_gb_per_s=live_bytes / t["ms"] / 1e6, card=card)
             del kv, scales, win, cases, mq_args
@@ -1044,8 +1205,12 @@ def time_k1_probe(torch, kp, da, card: str) -> dict:
         heads = [tuple(kv[p, i, :, :cur].view(batch, cur, H, D).transpose(1, 2) for p in (0, 1))
                  for i in range(L)]
 
+        # the length on the device, as K1 takes it on the main path (no fill kernel a call)
+        length = torch.tensor(cur, dtype=torch.int32, device="cuda")
+
         def probe_sweep(mode):
-            return lambda: [kp.k1_probe(q, kv, i, cur, chunk=tile, mode=mode) for i in range(L)]
+            return lambda: [kp.k1_probe(q, kv, i, length, chunk=tile, mode=mode, max_len=cur)
+                            for i in range(L)]
 
         t = _time_sweeps(torch, {
             "kernel": probe_sweep("full"),
@@ -1059,8 +1224,8 @@ def time_k1_probe(torch, kp, da, card: str) -> dict:
         modes = {"full": t["ms"]}
         for mode in kp.MODES[1:]:
             modes[mode] = time_loop(probe_sweep(mode), 10, device, graph=True) * 1e3 / (10 * L)
-        t["k1_ms"] = time_loop(lambda: [da.decode_attention(q, kv, i, cur) for i in range(L)],
-                               10, device, graph=True) * 1e3 / (10 * L)
+        t["k1_ms"] = time_loop(lambda: [da.decode_attention(q, kv, i, length, cur)
+                                        for i in range(L)], 10, device, graph=True) * 1e3 / (10 * L)
         t["mode_ms"] = modes
         times[batch] = t
         emit("probe_time", kernel="t4", batch=batch, cur_len=cur, dtype="bfloat16", **t,
@@ -1269,12 +1434,23 @@ def pipeline_run(torch, input_type: str, paths: list, batch_size: int, out_dir: 
 
 
 def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, kernel: str,
-                  max_faces: int = 800, argv: list = ()) -> dict:
+                  max_faces: int = 800, argv: list = (), paired: bool = False) -> dict:
     """Phase 8: one run of the main path (``run``: the CLI with ``argv``,
     or the pipeline). Every kernel's count is set to 0 just before it and
     read just after: ``kernel`` must have launched 24 times per decode
     step (K1-K3) or per window forward (K4), or once per decode step
-    (K5), and no other kernel at all. For phase 10 the peak of allocated
+    (K5), and no other kernel at all. A decode that replays CUDA graphs
+    (every tier's but K5's) launches through the wrappers in each graph's
+    warm-up step and in its capture, 24 times each, and the graph does
+    the rest, one replay (one host launch) a step or forward: the warm-ups
+    and replays must cover the decode steps (window forwards), and past
+    the last live one run at most one segment's no-op steps.
+
+    ``paired`` (phase graph_loop): each batch is decoded a second time
+    with the eager loop (``graph=False``) right after the replayed decode,
+    on the same model and input, and the token streams must be identical;
+    those launches are a comparison and are taken out of the counts. For
+    phase 10 the peak of allocated
     bytes that a generation of the run reached is read from the card's
     allocator, above what was allocated before the run loaded its model
     (so the weights, and whatever the run keeps beside them, are in it).
@@ -1285,8 +1461,36 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
 
     from meshanything_tpu_torch.runtime import pipeline
 
-    estimates, peaks = [], []
+    from meshanything_tpu_torch.runtime.decode_graph import StepGraph
+
+    estimates, peaks, pairs = [], [], []
     check = pipeline.check_memory_budget
+    generate = pipeline.InferencePipeline.generate
+    window_counts = ("window_launches", "quant_window_launches")
+
+    def paired_generate(self, pc_normal, **kw):
+        out = generate(self, pc_normal, **kw)
+        if not out["graph_captures"]:
+            return out
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        k4_before = [getattr(wrappers["k4"], c) for c in window_counts]
+        self.graph = False
+        try:
+            eager = generate(self, pc_normal, **kw)
+        finally:     # the eager decode is a comparison: its launches do not count
+            self.graph = True
+            for k, n in before.items():
+                wrappers[k].launches = n
+            for c, n in zip(window_counts, k4_before):
+                setattr(wrappers["k4"], c, n)
+        pairs.append({"tokens_identical": bool(torch.equal(out["tokens"], eager["tokens"])),
+                      "decode_steps": (out["decode_steps"], eager["decode_steps"]),
+                      "graph_decode_s": out["decode_s"], "capture_s": out["capture_s"],
+                      "eager_decode_s": eager["decode_s"],
+                      "graph_device_s": out["encode_s"] + out["decode_s"] + out["detok_s"],
+                      "eager_device_s": (eager["encode_s"] + eager["decode_s"]
+                                         + eager["detok_s"])})
+        return out
 
     def recording_check(*args, **kwargs):
         peaks.append(torch.cuda.max_memory_allocated())   # the batch before; first the loader's
@@ -1302,12 +1506,16 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
         fn.launches = 0
     wrappers["k4"].window_launches = 0
     wrappers["k4"].quant_window_launches = 0
+    StepGraph.captures = StepGraph.replays = 0
     t0 = time.perf_counter()
     pipeline.check_memory_budget = recording_check
+    if paired:
+        pipeline.InferencePipeline.generate = paired_generate
     try:
         results = run()
     finally:
         pipeline.check_memory_budget = check
+        pipeline.InferencePipeline.generate = generate
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
@@ -1324,9 +1532,23 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
     steps = sum(r["decode_steps"] for r in batches.values())
     units = (sum(r["window_forwards"] for r in batches.values()) if kernel == "k4" else steps)
     per_unit = 1 if kernel == "k5" else L
-    expected = {k: (per_unit * units if k == kernel else 0) for k in wrappers}
+    captures = sum(r["graph_captures"] for r in batches.values())
+    replays = sum(r["graph_replays"] for r in batches.values())
+    if (captures, replays) != (StepGraph.captures, StepGraph.replays):
+        raise AssertionError(f"{name}: the records' {captures} captures and {replays} replays "
+                             f"are not the {StepGraph.captures} and {StepGraph.replays} made")
+    # the steps (forwards) that went through the wrappers: each graph's warm-up and capture
+    wrapped = 2 * captures if captures else units
+    expected = {k: (per_unit * wrapped if k == kernel else 0) for k in wrappers}
     if launches != expected or units == 0:
         raise AssertionError(f"{name}: launches {launches}, expected {expected}")
+    # every tier but K5's replays its steps: one warm-up step a graph, then one replay
+    # (one host launch) a step; past the last live step at most one segment's no-ops
+    replayed = kernel != "k5"
+    surplus = replays + captures - units
+    if replayed != bool(captures) or (replayed and not 0 <= surplus < segment_steps(kernel)):
+        raise AssertionError(f"{name}: {captures} captures and {replays} replays for {units} "
+                             f"{'window forwards' if kernel == 'k4' else 'decode steps'}")
     # of K4's launches, those of the tensor-core kernels: all of them the bf16 one's
     # where the cache is bf16 at the 350M head width (F3), all the int8/int4 one's where
     # it is quantized and the queries bf16 (F1, F2), none elsewhere
@@ -1346,9 +1568,15 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
     batch_size = len(results) // len(batches)
     decode_s = sum(r["decode_s"] for r in batches.values())
     info = {
-        "run": name, "argv": [a for a in argv if not a.startswith("/")], "meshes": len(results),
+        "run": name, "kernel": kernel, "argv": [a for a in argv if not a.startswith("/")],
+        "meshes": len(results),
         "decode_steps": steps, "launches": launches, "k4_window_launches": window,
-        "k4_quant_window_launches": quant_window,
+        "k4_quant_window_launches": quant_window, "graph_captures": captures,
+        "graph_replays": replays,
+        # the kernel's launches inside the replayed graphs (24 a replay; K5: none)
+        "replayed_launches": per_unit * replays,
+        "host_launches_per_unit": (replays + captures) / units if captures else None,
+        "capture_s": sum(r["capture_s"] for r in batches.values()),
         "wall_s": wall,
         "device_s_per_mesh": sum(r["device_time_s"] for r in results) / len(results),
         "wall_s_per_mesh": wall / len(results),
@@ -1362,9 +1590,37 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
         if "window_trace" in results[0]:
             info["window_trace"] = [list(t) for r in batches.values() for t in r["window_trace"]]
     emit("main_path", **info)
+    if paired:
+        differ = [p for p in pairs if not p["tokens_identical"]]
+        info["pairs"] = pairs
+        emit("graph_loop", run=name, argv=info["argv"], batches=len(pairs),
+             tokens_identical=not differ and bool(pairs),
+             graph_decode_s=sum(p["graph_decode_s"] for p in pairs),
+             capture_s=sum(p["capture_s"] for p in pairs),
+             eager_decode_s=sum(p["eager_decode_s"] for p in pairs),
+             graph_s_per_mesh=sum(p["graph_device_s"] for p in pairs) / len(results),
+             eager_s_per_mesh=sum(p["eager_device_s"] for p in pairs) / len(results),
+             decode_steps=[p["decode_steps"] for p in pairs])
+        if differ or not pairs:
+            raise AssertionError(f"{name}: the replayed and the eager decode differ: {differ}")
     return info
 
 
+def segment_steps(kernel: str) -> int:
+    """Steps between the host's reads of a replayed decode: the decode
+    loop's ``sync_every``, the window loop's ``CHECK_EVERY``."""
+    import inspect
+
+    from meshanything_tpu_torch.models import lookahead, shape_opt
+
+    if kernel == "k4":
+        return lookahead.CHECK_EVERY
+    return inspect.signature(shape_opt.decode_loop).parameters["sync_every"].default
+
+
+# the CLI runs that phase graph_loop decodes again eagerly: every tier once (exact_meshes
+# repeats exact_pc's tier and would add ~1 min of eager decode to the smoke)
+PAIRED_RUNS = ("exact_pc", "F1", "F2", "F3", "F4", "F5")
 WINDOW_KERNEL_RUNS = ("F3",)      # the runs whose K4 is the bf16 tensor-core kernel
 QUANT_WINDOW_KERNEL_RUNS = ("F1", "F2")   # and those whose K4 is its int8/int4 instances
 
@@ -1411,9 +1667,153 @@ def small_input_agreement(torch) -> None:
         raise AssertionError(f"the card and the CPU disagree on the small config: {failures}")
 
 
-PHASES = ("k4_check", "k1_check", "k23_check", "graph_replay", "k1_time", "fast_time",
-          "k5_check", "k5_replay", "k5_time", "probe_check", "probe_time", "measurement_path",
-          "main_path", "agreement", "floor")
+def _state_tensors(state) -> list:
+    kv = list(state.kv) if isinstance(state.kv, tuple) else [state.kv]
+    return [state.tokens, *kv, state.done, state.last_token, state.step_t]
+
+
+def check_step_replays(torch, card: str, replays: int = 20, traced: int = 24) -> dict:
+    """Phase graph_loop, part 1: the exact tier's whole decode step at the
+    full 350M width (bf16, B=1, seeded random weights) captured in a CUDA
+    graph and replayed ``replays`` times beside the same step run eagerly
+    on a twin state: after each replay every state tensor (token buffer,
+    the whole cache, flags, last token, step counter) must be bit-equal
+    to the eager twin's. Then ``runtime/profiling.py::cuda_trace`` over
+    ``traced`` more replays: kernels a step and the device's busy share
+    (kernel time over the replays' time between CUDA events)."""
+    from meshanything_tpu_torch.config import MeshAnythingConfig
+    from meshanything_tpu_torch.models import shape_opt as opt
+    from meshanything_tpu_torch.runtime.checkpoint import init_random_params
+    from meshanything_tpu_torch.runtime.decode_graph import StepGraph
+    from meshanything_tpu_torch.runtime.profiling import cuda_trace, kernel_device_us
+
+    cfg = MeshAnythingConfig(dtype="bfloat16")
+    model = init_random_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                               cfg.activation_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cond = (torch.randn((1, cfg.opt.cond_length, cfg.opt.hidden_size), generator=gen,
+                        device="cuda") * 0.5).to(cfg.activation_dtype)
+    gl = cfg.generate_length
+    eager, replayed = (opt.init_decode_state(model.opt, cfg.opt, cond, max_new_tokens=gl)
+                       for _ in range(2))
+    twins = all(torch.equal(a, b) for a, b in zip(_state_tensors(eager),
+                                                  _state_tensors(replayed)))
+    opt.decode_step(model.opt, cfg.opt, eager)      # the twin of the capture's warm-up step
+    graph = StepGraph(lambda: opt.step_body(model.opt, cfg.opt, replayed), torch.device("cuda"))
+    same = []
+    for _ in range(replays):
+        opt.decode_step(model.opt, cfg.opt, eager)
+        graph.replay(1)
+        same.append(all(torch.equal(a, b) for a, b in zip(_state_tensors(eager),
+                                                          _state_tensors(replayed))))
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as log_dir:
+        with cuda_trace(log_dir) as prof:
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            graph.replay(traced)
+            stop.record()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(kernel_device_us(e) for e in kernels) / 1e3
+    span_ms = start.elapsed_time(stop)
+    out = {"batch": 1, "context_rows": cfg.opt.cond_length + int(replayed.step_t) - 1,
+           "replays": replays, "bit_equal": sum(same), "twins_equal_at_start": twins,
+           "capture_s": graph.capture_s, "traced_steps": traced,
+           "ms_per_step": span_ms / traced,
+           "kernels_per_step": len(kernels) / traced,
+           "device_busy_ms_per_step": busy_ms / traced if kernels else None,
+           "busy_share": busy_ms / span_ms if kernels else None, "card": card,
+           "ok": twins and all(same)}
+    emit("graph_loop_step", **out)
+    del graph, eager, replayed, model
+    torch.cuda.empty_cache()
+    if not out["ok"]:
+        raise AssertionError(f"a replayed decode step differs from the eager step: {out}")
+    return out
+
+
+def check_sampled_replays(torch) -> bool:
+    """Phase graph_loop, part 2: sampling draws from the request's own
+    generator, registered with the graph. On the small config (f32, card)
+    the sampled single-token decode and the speculative-sampling window
+    loop replayed from graphs give the eager loop's tokens for the same
+    seed. Returns ``sampled_eager``: true where the installed torch cannot
+    register a generator and the sampled decode stays eager."""
+    from meshanything_tpu_torch.config import small_test_config
+    from meshanything_tpu_torch.models import lookahead as la
+    from meshanything_tpu_torch.models import shape_opt as opt
+    from meshanything_tpu_torch.runtime import decode_graph
+    from meshanything_tpu_torch.runtime.checkpoint import init_random_params
+
+    sampled_eager = not decode_graph.generator_capturable()
+    cfg = small_test_config(n_max_triangles=8)
+    model = init_random_params(cfg, torch.Generator().manual_seed(3), torch.float32).cuda()
+    cond = torch.randn((2, cfg.opt.cond_length, cfg.opt.hidden_size),
+                       generator=torch.Generator().manual_seed(6)).cuda() * 3
+    gl = cfg.generate_length
+    failures = []
+    for loop in ("single_token", "lookahead4"):
+        tokens = {}
+        for graph in (True, False):
+            generator = torch.Generator(device="cuda").manual_seed(9)
+            if loop == "single_token":
+                state = opt.init_decode_state(model.opt, cfg.opt, cond, max_new_tokens=gl,
+                                              bucket=16, sampling=True, generator=generator)
+                state = opt.decode_loop(model.opt, cfg.opt, state, max_new_tokens=gl,
+                                        sampling=True, graph=graph)
+                captured = state.graph is not None
+            else:
+                state = la.init_lookahead_state(model.opt, cfg.opt, cond, max_new_tokens=gl,
+                                                window=4, bucket=16, sampling=True,
+                                                generator=generator)
+                state = la.lookahead_segment(model.opt, cfg.opt, state, max_new_tokens=gl,
+                                             sampling=True, graph=graph)
+                captured = bool(state.graphs)
+            tokens[graph] = (state.tokens[:, :gl].cpu(), captured)
+        same = bool(torch.equal(tokens[True][0], tokens[False][0]))
+        emit("graph_loop_sampled", loop=loop, sampled_eager=sampled_eager,
+             captured=tokens[True][1], tokens_identical=same)
+        if not same or tokens[True][1] == sampled_eager:
+            failures.append(loop)
+    if failures:
+        raise AssertionError(f"sampled decode: replayed and eager streams differ: {failures}")
+    return sampled_eager
+
+
+def graph_loop(torch, wrappers: dict, cli, load_obj, card: str, roof_gbs) -> None:
+    """Phase graph_loop (its paired CLI runs are phase 8's runs, each
+    decoded again eagerly: ``run_main_path(paired=True)``): a replayed
+    whole step bit-equal to the eager step with its trace; the sampled
+    decode; and the exact tier at the full 800 faces, B=1, under the
+    graph, beside ``bwprobe.exact_floor_seconds`` at ``roof_gbs`` (the
+    data sheet's rate where phase probe_time did not run)."""
+    from meshanything_tpu_torch.config import MeshAnythingConfig
+    from meshanything_tpu_torch.runtime.bwprobe import exact_floor_seconds
+
+    step = check_step_replays(torch, card)
+    sampled_eager = check_sampled_replays(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        npy, _ = write_inputs(tmp)
+        argv = ["--input_type", "pc_normal", "--input_path", npy, "--out_dir",
+                os.path.join(tmp, "out"), "--random_weights", "--seed", "0", "--dtype",
+                "bfloat16", "--device", "cuda"]
+        full = run_main_path(torch, wrappers, load_obj, "exact_pc_800",
+                             lambda: cli.main(argv), 1, "k1", argv=argv)
+    rate = roof_gbs if roof_gbs is not None else HBM_BYTES_PER_S / 1e9
+    floor = exact_floor_seconds(MeshAnythingConfig(dtype="bfloat16"), rate, 1)
+    emit("graph_loop_full", run="exact_pc_800", s_per_mesh=full["device_s_per_mesh"],
+         decode_steps=full["decode_steps"], capture_s=full["capture_s"],
+         exact_floor_seconds=floor, floor_rate_gbs=rate,
+         floor_rate_from="roof_gbs" if roof_gbs is not None else "data sheet",
+         over_floor=full["device_s_per_mesh"] / floor, sampled_eager=sampled_eager,
+         step_ms=step["ms_per_step"], card=card)
+
+
+PHASES = ("k4_check", "k1_check", "k23_check", "graph_replay", "device_length", "k1_time",
+          "fast_time", "k5_check", "k5_replay", "k5_time", "probe_check", "probe_time",
+          "measurement_path", "main_path", "graph_loop", "agreement", "floor")
 
 
 def parse_only(argv: list) -> set:
@@ -1430,6 +1830,8 @@ def parse_only(argv: list) -> set:
         raise SystemExit(f"unknown phases {sorted(unknown)}; phases: {', '.join(PHASES)}")
     if "floor" in only and not {"main_path", "probe_time"} <= only:
         raise SystemExit("floor needs main_path and probe_time")
+    if "graph_loop" in only and "main_path" not in only:
+        raise SystemExit("graph_loop needs main_path (its paired runs are the main path's)")
     return only
 
 
@@ -1462,8 +1864,11 @@ def main(argv=None) -> int:
     first = canary(torch.device("cuda"))
     emit("canary", **first, tolerance=0.0)
 
-    with ThreadPoolExecutor(len(KERNEL_LIBS)) as pool:   # one nvcc per source, all at once
+    mutants = DEVICE_LEN_LIBS if "device_length" in only else ()
+    with ThreadPoolExecutor(len(KERNEL_LIBS) + len(mutants)) as pool:   # one nvcc a source
+        mutated = pool.map(build_plan_from_bound, mutants)
         libs = list(pool.map(_build.load, KERNEL_LIBS))
+        mutated = dict(zip(mutants, mutated))
     for name, lib in zip(KERNEL_LIBS, libs):
         emit("build", kernel=name, built=lib.built, seconds=lib.seconds,
              ptxas=[ln for ln in lib.log.splitlines() if "registers" in ln or "spill" in ln])
@@ -1479,6 +1884,8 @@ def main(argv=None) -> int:
         worst.update(check_k23(torch, da))
     if "graph_replay" in only:
         check_graph_replays(torch, da)
+    if "device_length" in only:
+        check_device_length(torch, da, mutated)
     if "k1_time" in only:
         times["k1"] = time_k1(torch, da, card)
     if "fast_time" in only:
@@ -1508,7 +1915,9 @@ def main(argv=None) -> int:
         probe_launches = drive_measurement_path(torch, wrappers)
     runs = []
     if "main_path" in only:
-        runs = drive_main_path(torch, wrappers, cli, load_obj)
+        runs = drive_main_path(torch, wrappers, cli, load_obj, paired="graph_loop" in only)
+    if "graph_loop" in only:
+        graph_loop(torch, wrappers, cli, load_obj, card, roof_gbs)
     if "agreement" in only:
         small_input_agreement(torch)
     if "floor" in only:
@@ -1524,9 +1933,10 @@ def main(argv=None) -> int:
     return 0
 
 
-def drive_main_path(torch, wrappers: dict, cli, load_obj) -> list:
+def drive_main_path(torch, wrappers: dict, cli, load_obj, paired: bool = False) -> list:
     """Phase 8: the CLI runs and the pipeline runs, each through
-    ``run_main_path``; returns their records."""
+    ``run_main_path`` (``paired``: each CLI run's batches decoded again
+    eagerly, for phase graph_loop); returns their records."""
     def cli_run(argv):
         return lambda: cli.main(argv)
 
@@ -1550,7 +1960,7 @@ def drive_main_path(torch, wrappers: dict, cli, load_obj) -> list:
             ("F5", ["--attn", "pallas_int4", "--wq", *short, *meshes], 2, "k3", 100),
         ]
         runs = [run_main_path(torch, wrappers, load_obj, name, cli_run(argv), expect, kernel,
-                              max_faces=faces, argv=argv)
+                              max_faces=faces, argv=argv, paired=paired and name in PAIRED_RUNS)
                 for name, argv, expect, kernel, faces in cli_runs]
         # the megakernel path has no CLI flag (nor in the JAX CLI): its entry is the pipeline
         out = os.path.join(tmp, "out_megakernel")
@@ -1578,6 +1988,12 @@ def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dic
     launches = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
     window_launches = sum(r["k4_window_launches"] for r in runs)
     quant_window_launches = sum(r["k4_quant_window_launches"] for r in runs)
+    # the launches inside the replayed CUDA graphs, which no wrapper counts
+    replayed = {k: sum(r["replayed_launches"] for r in runs if r["kernel"] == k)
+                for k in launches}
+    replayed["k4_window"] = sum(r["replayed_launches"] for r in runs
+                                if r["run"] in WINDOW_KERNEL_RUNS)
+    replayed["k4"] -= replayed["k4_window"]
     src = "meshanything_tpu_torch/csrc/"
     tpu = "meshanything_tpu/ops/decode_attention.py:"
     # K2, K3 and the int8/int4 K4 beyond the headline shapes: {kernel: {b1_len300_w8: ms}}
@@ -1594,7 +2010,8 @@ def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dic
     kernels = []
     for key, name, source, line, t in rows:
         entry = {"name": name, "route": "cuda", "source": src + source, "replaces": tpu + line,
-                 "launches": launches[key], "max_abs_err": worst[key],
+                 "launches": launches[key], "replayed_launches": replayed[key],
+                 "max_abs_err": worst[key],
                  "ms": t[1]["ms"], "plain_ms": t[1]["plain_ms"], "bound_ms": t[1]["bound_ms"],
                  "bound_by": t[1]["bound_by"], "library_ms": t[1].get("library_ms"),
                  "ms_b16": t[16]["ms"], "plain_ms_b16": t[16]["plain_ms"],
@@ -1618,7 +2035,8 @@ def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dic
     kernels.append({
         "name": "decode_attention_mq (bf16 cache, head width 64)", "route": "cuda",
         "source": src + "decode_attention_window.cu", "replaces": tpu + "98",
-        "launches": window_launches, "max_abs_err": worst["k4_window"], "window": 8,
+        "launches": window_launches, "replayed_launches": replayed["k4_window"],
+        "max_abs_err": worst["k4_window"], "window": 8,
         "ms": t[1]["ms"], "plain_ms": t[1]["plain_ms"], "bound_ms": t[1]["bound_ms"],
         "bound_by": t[1]["bound_by"], "library_ms": t[1]["library_ms"],
         "ms_b16": t[16]["ms"], "plain_ms_b16": t[16]["plain_ms"],

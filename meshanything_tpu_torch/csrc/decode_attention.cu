@@ -39,6 +39,12 @@
 //     the card with 132 long-lived blocks;
 //   * the combine is folded into this kernel (split_fold.cuh): one launch
 //     a call;
+//   * the live length is read on the device, so that one CUDA graph of a
+//     decode step replays at every length: the grid is planned for a host
+//     bound (the cache's S), each block recomputes the plan of the live
+//     length (split_fold::plan_for) and the surplus blocks return at once,
+//     so the rows are split and folded as a call planned for the live
+//     length splits and folds them, bit for bit;
 //   * all offsets into the cache are 64-bit: the B=16 bf16 cache is 11.25
 //     GiB and its K->V plane stride is past 2^31 bytes.
 // The kernel allocates nothing and does not synchronise; the Python
@@ -114,8 +120,9 @@ struct Args {
   const void* q;     // (B, H, D)
   const void* kv;    // (2, L, B, S, H*D)
   void* out;         // (B, H, D)
-  split_fold::Plan fold;
-  int64_t B, H, L, S, layer, cur_len;
+  split_fold::Plan fold;    // the grid's plan, made for max_len rows
+  const int32_t* cur_len;   // the live length, read on the device
+  int64_t B, H, L, S, layer, max_len;
   float scale;       // 1 / sqrt(D)
 };
 
@@ -153,10 +160,17 @@ __global__ void __launch_bounds__(32 * kMaxHeads, 1) decode_split_kernel(const A
   const int c = lane % NCH;
   const int g = lane / NCH;
 
-  const int64_t tiles = (a.cur_len + TR - 1) / TR;
-  const int64_t row0 = (split * tiles / a.fold.nsplit) * TR;
-  int64_t row1 = ((split + 1) * tiles / a.fold.nsplit) * TR;
-  row1 = row1 < a.cur_len ? row1 : a.cur_len;
+  // the live plan (split_fold.cuh): the splits and groups of the call
+  // planned for this length; the grid's surplus blocks leave here
+  const int64_t cur_len = split_fold::live_length(a.cur_len, a.max_len);
+  const int64_t plan_len = cur_len;
+  const split_fold::Plan fold = split_fold::plan_for(a.fold, (plan_len + TR - 1) / TR);
+  if (split >= fold.nsplit) return;
+
+  const int64_t tiles = (cur_len + TR - 1) / TR;
+  const int64_t row0 = (split * tiles / fold.nsplit) * TR;
+  int64_t row1 = ((split + 1) * tiles / fold.nsplit) * TR;
+  row1 = row1 < cur_len ? row1 : cur_len;
   const uint32_t row_bytes = static_cast<uint32_t>(H * D * sizeof(T));
   const int64_t first = (a.layer * a.B + b) * a.S;   // flat row 0 of (layer, b)
   const unsigned char* kp = static_cast<const unsigned char*>(a.kv) + first * row_bytes;
@@ -270,7 +284,7 @@ __global__ void __launch_bounds__(32 * kMaxHeads, 1) decode_split_kernel(const A
 #pragma unroll
     for (int e = 0; e < EPC; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
   }
-  const int slots = a.fold.nsplit + a.fold.ngroups;
+  const int slots = fold.nsplit + fold.ngroups;
   const int64_t slot = (b * slots + split) * H + h;
   if (g == 0) {
     float* o = a.fold.o_part + slot * D + c * EPC;
@@ -282,7 +296,7 @@ __global__ void __launch_bounds__(32 * kMaxHeads, 1) decode_split_kernel(const A
     a.fold.ml_part[2 * slot + 1] = kStats ? l_run : 1.f;
   }
   if constexpr (MODE != kNoFold) {
-    split_fold::finish<T, D, full_math(MODE)>(a.fold, b, split, H,
+    split_fold::finish<T, D, full_math(MODE)>(fold, b, split, H,
                                               static_cast<T*>(a.out) + b * H * D);
   }
 }
@@ -290,9 +304,10 @@ __global__ void __launch_bounds__(32 * kMaxHeads, 1) decode_split_kernel(const A
 template <typename T, int D, int MODE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int TR = tile_rows<T>();
-  const int64_t tiles = (a.cur_len + TR - 1) / TR;
+  const int64_t tiles = (a.max_len + TR - 1) / TR;
   const int64_t row_bytes = a.H * D * static_cast<int64_t>(sizeof(T));
-  if (a.H < 1 || a.H > kMaxHeads || row_bytes % 16 || a.fold.nsplit < 1 ||
+  if (a.H < 1 || a.H > kMaxHeads || row_bytes % 16 || a.cur_len == nullptr || a.max_len < 1 ||
+      a.max_len > a.S || a.fold.nsplit < 1 ||
       a.fold.nsplit > tiles || a.fold.nsplit > 65535 || a.fold.group < 1 ||
       a.fold.ngroups != (a.fold.nsplit + a.fold.group - 1) / a.fold.group)
     return cudaErrorInvalidValue;
@@ -310,8 +325,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }
 
 inline Args make_args(const void* q, const void* kv, void* out, void* o_part, void* ml_part,
-                      void* counters, int64_t B, int64_t H, int64_t D, int64_t L, int64_t S,
-                      int64_t layer, int64_t cur_len, int64_t nsplit, int64_t group) {
+                      void* counters, const void* cur_len, int64_t B, int64_t H, int64_t D,
+                      int64_t L, int64_t S, int64_t layer, int64_t max_len, int64_t nsplit,
+                      int64_t group) {
   Args a;
   a.q = q;
   a.kv = kv;
@@ -327,7 +343,8 @@ inline Args make_args(const void* q, const void* kv, void* out, void* o_part, vo
   a.L = L;
   a.S = S;
   a.layer = layer;
-  a.cur_len = cur_len;
+  a.cur_len = static_cast<const int32_t*>(cur_len);
+  a.max_len = max_len;
   a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   return a;
 }
@@ -347,16 +364,21 @@ cudaError_t dispatch_d(const Args& a, int64_t D, cudaStream_t stream) {
 }  // namespace
 
 // C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// nsplit splits a batch row, folded in groups of `group`. o_part is (B, nsplit + ngroups, H, D) f32, ml_part
+// cur_len points to the live length, an int32 in device memory that the
+// kernel reads (clamped to max_len, 1 <= max_len <= S). The grid is
+// nsplit splits a batch row (split_plan for max_len rows), folded in
+// groups of `group`; the kernel runs the plan of the live length inside
+// it. o_part is (B, nsplit + ngroups, H, D) f32, ml_part
 // (B, nsplit + ngroups, H, 2) f32, counters at least B * (1 + ngroups)
 // int32, all 0 between calls. Returns cudaGetLastError() after the launch
 // (0 on success).
 extern "C" int mt_decode_attention(const void* q, const void* kv, void* out, void* o_part,
-                                   void* ml_part, void* counters, int dtype, int64_t B, int64_t H,
-                                   int64_t D, int64_t L, int64_t S, int64_t layer,
-                                   int64_t cur_len, int64_t nsplit, int64_t group, void* stream) {
-  const Args a = make_args(q, kv, out, o_part, ml_part, counters, B, H, D, L, S, layer, cur_len,
-                           nsplit, group);
+                                   void* ml_part, void* counters, const void* cur_len, int dtype,
+                                   int64_t B, int64_t H, int64_t D, int64_t L, int64_t S,
+                                   int64_t layer, int64_t max_len, int64_t nsplit, int64_t group,
+                                   void* stream) {
+  const Args a = make_args(q, kv, out, o_part, ml_part, counters, cur_len, B, H, D, L, S, layer,
+                           max_len, nsplit, group);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) err = dispatch_d<float>(a, D, st);

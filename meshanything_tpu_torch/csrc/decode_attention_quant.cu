@@ -44,6 +44,8 @@
 //     row groups, P.V into the lane's own columns;
 //   * the combine is folded into the launch (split_fold.cuh): one launch
 //     a call, through the stream's FoldWorkspace, as K1;
+//   * the live length is read on the device and the grid planned for a
+//     host bound, as K1: each block runs the live length's plan;
 //   * offsets into the cache are 64-bit (the B=16 int8 cache's K->V plane
 //     stride is 3.02 GB).
 // The kernel allocates nothing and does not synchronise.
@@ -120,8 +122,9 @@ struct Args {
   const unsigned char* kv; // (2, L, B, S, packed) codes
   const float* scales;     // (2, L, B, 1, S)
   void* out;               // (B, H, D) in q's dtype
-  split_fold::Plan fold;
-  int64_t B, H, L, S, layer, cur_len;
+  split_fold::Plan fold;    // the grid's plan, made for max_len rows
+  const int32_t* cur_len;   // the live length, read on the device
+  int64_t B, H, L, S, layer, max_len;
   float scale;             // 1 / sqrt(D)
 };
 
@@ -149,10 +152,16 @@ __global__ void __launch_bounds__(32 * kMaxHeads, 1) quant_split_kernel(const Ar
   const int c = lane % NCH;
   const int g = lane / NCH;
 
-  const int64_t tiles = (a.cur_len + kTile - 1) / kTile;
-  const int64_t row0 = (split * tiles / a.fold.nsplit) * kTile;
-  int64_t row1 = ((split + 1) * tiles / a.fold.nsplit) * kTile;
-  row1 = row1 < a.cur_len ? row1 : a.cur_len;
+  // the live plan, as in K1 (split_fold.cuh): the grid's surplus blocks leave here
+  const int64_t cur_len = split_fold::live_length(a.cur_len, a.max_len);
+  const int64_t plan_len = cur_len;
+  const split_fold::Plan fold = split_fold::plan_for(a.fold, (plan_len + kTile - 1) / kTile);
+  if (split >= fold.nsplit) return;
+
+  const int64_t tiles = (cur_len + kTile - 1) / kTile;
+  const int64_t row0 = (split * tiles / fold.nsplit) * kTile;
+  int64_t row1 = ((split + 1) * tiles / fold.nsplit) * kTile;
+  row1 = row1 < cur_len ? row1 : cur_len;
   const uint32_t code_bytes = static_cast<uint32_t>(H * D);   // int8 codes of a row
   const uint32_t row_bytes = F == kI4 ? code_bytes / 2 : code_bytes;
   const int64_t plane_rows = a.L * a.B * a.S;
@@ -266,7 +275,7 @@ __global__ void __launch_bounds__(32 * kMaxHeads, 1) quant_split_kernel(const Ar
 #pragma unroll
     for (int e = 0; e < CB; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
   }
-  const int slots = a.fold.nsplit + a.fold.ngroups;
+  const int slots = fold.nsplit + fold.ngroups;
   const int64_t slot = (b * slots + split) * H + h;
   if (g == 0) {
     float* o = a.fold.o_part + slot * D + c * CB;
@@ -278,15 +287,16 @@ __global__ void __launch_bounds__(32 * kMaxHeads, 1) quant_split_kernel(const Ar
     a.fold.ml_part[2 * slot + 1] = l_run;
   }
   if constexpr (!kCutFold) {
-    split_fold::finish<QT, D, true>(a.fold, b, split, H, static_cast<QT*>(a.out) + b * H * D);
+    split_fold::finish<QT, D, true>(fold, b, split, H, static_cast<QT*>(a.out) + b * H * D);
   }
 }
 
 template <int F, typename QT, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int64_t tiles = (a.cur_len + kTile - 1) / kTile;
+  const int64_t tiles = (a.max_len + kTile - 1) / kTile;
   const int64_t code_bytes = a.H * D;
-  if (a.H < 1 || a.H > kMaxHeads || code_bytes % 32 || a.S % 4 || a.fold.nsplit < 1 ||
+  if (a.H < 1 || a.H > kMaxHeads || code_bytes % 32 || a.S % 4 || a.cur_len == nullptr ||
+      a.max_len < 1 || a.max_len > a.S || a.fold.nsplit < 1 ||
       a.fold.nsplit > tiles || a.fold.nsplit > 65535 || a.fold.group < 1 ||
       a.fold.ngroups != (a.fold.nsplit + a.fold.group - 1) / a.fold.group)
     return cudaErrorInvalidValue;
@@ -317,16 +327,20 @@ cudaError_t dispatch_d(const Args& a, int64_t D, cudaStream_t stream) {
 
 // C interface, loaded with ctypes. fmt: 2 = int8 codes (K2), 3 = int4
 // plane words (K3); qdtype: 0 = float32, 1 = bfloat16. S % 4 == 0 (the
-// scales' copies) and H*D % 32 == 0. nsplit splits a batch row (at most
-// one a 32-row tile), folded in groups of `group`. o_part is
+// scales' copies) and H*D % 32 == 0. cur_len points to the live length,
+// an int32 in device memory (clamped to max_len, 1 <= max_len <= S). The
+// grid is nsplit splits a batch row (at most one a 32-row tile of max_len
+// rows), folded in groups of `group`; the kernel runs the live length's
+// plan inside it, as K1. o_part is
 // (B, nsplit + ngroups, H, D) f32, ml_part (B, nsplit + ngroups, H, 2)
 // f32, counters at least B * (1 + ngroups) int32, all 0 between calls.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int mt_decode_attention_quant(const void* q, const void* kv, const void* scales,
                                          void* out, void* o_part, void* ml_part, void* counters,
-                                         int fmt, int qdtype, int64_t B, int64_t H, int64_t D,
-                                         int64_t L, int64_t S, int64_t layer, int64_t cur_len,
-                                         int64_t nsplit, int64_t group, void* stream) {
+                                         const void* cur_len, int fmt, int qdtype, int64_t B,
+                                         int64_t H, int64_t D, int64_t L, int64_t S,
+                                         int64_t layer, int64_t max_len, int64_t nsplit,
+                                         int64_t group, void* stream) {
   Args a;
   a.q = q;
   a.kv = static_cast<const unsigned char*>(kv);
@@ -343,7 +357,8 @@ extern "C" int mt_decode_attention_quant(const void* q, const void* kv, const vo
   a.L = L;
   a.S = S;
   a.layer = layer;
-  a.cur_len = cur_len;
+  a.cur_len = static_cast<const int32_t*>(cur_len);
+  a.max_len = max_len;
   a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;

@@ -77,16 +77,19 @@ cudaError_t dispatch_mode(int mode, const Args& a, cudaStream_t stream) {
 // 7 tap_rows. no_fold leaves the partials (o_part
 // (B, nsplit + ngroups, H, D), ml_part (B, nsplit + ngroups, H, 2), both
 // f32; the first nsplit slots are the splits') as the result. chunk must
-// be K1's tile for the dtype and D 64.
+// be K1's tile for the dtype and D 64. cur_len and max_len as K1's: the
+// live length in device memory, the grid planned for max_len rows (the
+// wrapper plans it for the live length, so the plan is the grid's).
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int mt_k1_probe(const void* q, const void* kv, void* out, void* o_part, void* ml_part,
-                           void* counters, int dtype, int mode, int64_t B, int64_t H, int64_t D,
-                           int64_t L, int64_t S, int64_t layer, int64_t cur_len, int64_t chunk,
-                           int64_t nsplit, int64_t group, void* stream) {
+                           void* counters, const void* cur_len, int dtype, int mode, int64_t B,
+                           int64_t H, int64_t D, int64_t L, int64_t S, int64_t layer,
+                           int64_t max_len, int64_t chunk, int64_t nsplit, int64_t group,
+                           void* stream) {
   const int64_t tile = dtype == 0 ? tile_rows<float>() : tile_rows<__nv_bfloat16>();
   if (chunk != tile || D != 64 || H * D < tile) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(q, kv, out, o_part, ml_part, counters, B, H, D, L, S, layer, cur_len,
-                           nsplit, group);
+  const Args a = make_args(q, kv, out, o_part, ml_part, counters, cur_len, B, H, D, L, S, layer,
+                           max_len, nsplit, group);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) err = dispatch_mode<float>(mode, a, st);

@@ -48,6 +48,43 @@ struct Plan {
   int ngroups;   // ceil(nsplit / group)
 };
 
+// The live length of a call that reads it on the device (a 0-d int32
+// tensor: a CUDA graph replays the call at every length), clamped to the
+// host bound `max_len` for which the grid was planned.
+__device__ __forceinline__ int64_t live_length(const int32_t* len, int64_t max_len) {
+  const int64_t n = *len;
+  return n < 0 ? 0 : (n > max_len ? max_len : n);
+}
+
+// ops/decode_attention.py::fold_group in device code: every split in one
+// group up to 24 splits, isqrt(nsplit - 1) + 1 a group beyond.
+__device__ __forceinline__ int fold_group(int nsplit) {
+  if (nsplit <= 24) return nsplit;
+  int r = static_cast<int>(sqrtf(static_cast<float>(nsplit - 1)));
+  while (r * r > nsplit - 1) --r;
+  while ((r + 1) * (r + 1) <= nsplit - 1) ++r;
+  return r + 1;
+}
+
+// The plan that a call planned on the host for `tiles` live tiles would
+// have made (ops/decode_attention.py::split_plan): the grid's splits were
+// planned for the bound, about one block an SM, so the live plan is
+// min(tiles, grid splits) splits in groups of fold_group of that. Every
+// block computes it from the length it read; a block whose split is not
+// in it returns at once and draws no ticket, and the fold's slots and
+// tickets are the live plan's, so the call partitions the rows and folds
+// them exactly as the call planned for the live length does: its output
+// is bit-equal to that call's. The workspace is sized for the grid's plan,
+// which holds every live plan (nsplit + ngroups grows with nsplit).
+__device__ __forceinline__ Plan plan_for(const Plan& grid, int64_t tiles) {
+  Plan p = grid;
+  p.nsplit = static_cast<int>(tiles < grid.nsplit ? tiles : grid.nsplit);
+  if (p.nsplit < 1) p.nsplit = 1;
+  p.group = fold_group(p.nsplit);
+  p.ngroups = (p.nsplit + p.group - 1) / p.group;
+  return p;
+}
+
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 

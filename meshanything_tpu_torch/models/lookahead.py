@@ -15,8 +15,13 @@ rows [0, write_start); after the last layer all layers' window rows are
 written into the cache at once. ``write_start = cond_length + steps - 1``
 per row.
 
-The host loop reads the rows' live flags before every forward, so the
-forwards it runs are exactly the JAX ``while_loop``'s iterations.
+A forward with no live row changes no state tensor (it may still write
+cache rows at the frozen bases, as JAX's frozen rows do) and counts no
+iteration (``iters_t`` on the device, JAX's ``iters``), so the forwards
+past the last live one are no-ops and a segment (``lookahead_segment``)
+reads the live flags once every few forwards. On the card each forward
+is a replay of a CUDA graph captured for the window's width
+(``runtime/decode_graph.py``); elsewhere the same forward runs eagerly.
 
 Sampling is speculative sampling against the deterministic draft chain
 of the window's guesses (``_speculative_accept``), with a
@@ -44,18 +49,29 @@ from meshanything_tpu_torch.ops.decode_attention import decode_attention_mq
 from meshanything_tpu_torch.ops.kvcache import QUANTIZED, quantize_rows_for
 from meshanything_tpu_torch.ops.sampling import sample_token, top_k_filter, top_p_filter
 from meshanything_tpu_torch.ops.wquant import lin_dispatch, quantize_opt_layers
+from meshanything_tpu_torch.runtime import decode_graph
+
+# forwards between the host's reads of the live flags on the card (a
+# forward past the last live one changes nothing, so up to CHECK_EVERY - 1
+# of them may run at the end of the decode)
+CHECK_EVERY = 16
 
 
 @dataclasses.dataclass
 class LookaheadState:
+    # The tensors are written in place, never rebound (a captured forward
+    # replays over them); ``resize_window`` gives a state with another
+    # window tensor and the same others.
     steps: torch.Tensor         # (B,) int64: tokens generated per row
     tokens: torch.Tensor        # (B, gen_len + buf_window) int64, eos-prefilled
     kv: Cache                   # written in place
     done: torch.Tensor          # (B,) bool
     window: torch.Tensor        # (B, W) int64: w_0 = last confirmed, rest guesses
-    iters: int                  # window forwards run
+    iters: int                  # the host's copy of iters_t, read at each segment's end
+    iters_t: torch.Tensor       # () int64 on the device: forwards with a live row (JAX's iters)
     attn: str
     generator: Optional[torch.Generator] = None   # speculative sampling only
+    graphs: dict = dataclasses.field(default_factory=dict)   # width -> captured forward (card)
 
 
 def _gumbel_argmax(logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -127,7 +143,9 @@ def _append_window(state: LookaheadState, rows: list, write_start: torch.Tensor)
 def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
                  max_new_tokens: int, wq_layers: Optional[Sequence] = None,
                  sampling: bool = False, top_k: int = 50, top_p: float = 0.95) -> None:
-    """One W-token forward and its acceptance; updates ``state`` in place."""
+    """One W-token forward and its acceptance; updates the state's tensors
+    in place and reads nothing back (a CUDA graph captures it). With no
+    live row it changes nothing but cache rows at the frozen bases."""
     lin_e = lin_dispatch(wq_layers is not None)
     b, w = state.window.shape
     dtype = p.cond_embed.dtype
@@ -174,18 +192,20 @@ def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
     accepted = torch.minimum(accepted, (max_new_tokens - state.steps).clamp_min(0))
     accepted = torch.where(frozen, 0, accepted)
 
+    live = ~frozen.all()        # JAX's cond_fn: a forward runs while some row is live
     fill = torch.where(idx_w < accepted[:, None], emitted, cfg.eos_token_id)
     state.tokens[torch.arange(b, device=dev)[:, None], state.steps[:, None] + idx_w] = fill
-    state.done = state.done | (has_eos & (first_eos < accepted))
+    state.done.logical_or_(has_eos & (first_eos < accepted))
 
     # next window: the last accepted token, then the predictions rolled
     # left by `accepted`
     last = torch.gather(emitted, 1, (accepted - 1).clamp_min(0)[:, None])[:, 0]
     last = torch.where(frozen, state.window[:, 0], last)
     guesses = torch.gather(preds, 1, (idx_w + accepted[:, None]) % w)
-    state.window = torch.cat([last[:, None], guesses[:, :w - 1]], dim=1)
-    state.steps = state.steps + accepted
-    state.iters += 1
+    window = torch.cat([last[:, None], guesses[:, :w - 1]], dim=1)
+    state.window.copy_(torch.where(live, window, state.window))
+    state.steps.add_(accepted)
+    state.iters_t.add_(live.long())
 
 
 def resize_window(state: LookaheadState, new_w: int) -> LookaheadState:
@@ -234,22 +254,68 @@ def init_lookahead_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Te
     win = torch.zeros((b, window), dtype=torch.int64, device=dev)
     win[:, 0] = first
     return LookaheadState(steps=torch.ones(b, dtype=torch.int64, device=dev), tokens=tokens,
-                          kv=kv, done=first == cfg.eos_token_id, window=win, iters=0, attn=attn,
+                          kv=kv, done=first == cfg.eos_token_id, window=win, iters=0,
+                          iters_t=torch.zeros((), dtype=torch.int64, device=dev), attn=attn,
                           generator=generator)
+
+
+def _read_counters(state: LookaheadState, max_new_tokens: int) -> tuple[int, bool]:
+    """(forwards counted, some row live): one read from the device."""
+    live = ((state.steps < max_new_tokens) & ~state.done).any()
+    iters, any_live = torch.stack([state.iters_t, live.long()]).tolist()
+    return iters, bool(any_live)
 
 
 def lookahead_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
                       max_new_tokens: int, wq_layers: Optional[Sequence] = None,
                       until_iters: Optional[int] = None, sampling: bool = False,
-                      top_k: int = 50, top_p: float = 0.95) -> LookaheadState:
-    """Window forwards while any row is live, and at most until
-    ``state.iters == until_iters``."""
-    while until_iters is None or state.iters < until_iters:
-        if not bool(((state.steps < max_new_tokens) & ~state.done).any()):
-            break
+                      top_k: int = 50, top_p: float = 0.95,
+                      graph: bool = True) -> LookaheadState:
+    """JAX's ``lookahead_segment``: window forwards while some row is live
+    and, when given, while ``state.iters < until_iters``. The host reads
+    the live flags and the forward count once every ``CHECK_EVERY``
+    forwards (every forward on the CPU, where a read costs nothing); the
+    forwards run past the last live one change nothing and count nothing.
+
+    On the card (``graph``) each forward is a replay of the CUDA graph
+    captured, after one eager forward, for the window's width and kept in
+    ``state.graphs``; a capture that fails raises. With ``graph=False``
+    (the eager comparison) and on the CPU the forward runs eagerly.
+    Speculative sampling with a generator that the installed torch cannot
+    register with a graph runs eagerly, with a warning."""
+    def forward():
         _window_step(p, cfg, state, max_new_tokens=max_new_tokens, wq_layers=wq_layers,
                      sampling=sampling, top_k=top_k, top_p=top_p)
-    return state
+
+    use_graph = decode_graph.use_graph(state.tokens.device, graph) and (
+        not sampling or decode_graph.generator_capturable())
+    while True:
+        state.iters, live = _read_counters(state, max_new_tokens)
+        if not live or (until_iters is not None and state.iters >= until_iters):
+            return state
+        n = CHECK_EVERY if use_graph or state.tokens.is_cuda else 1
+        if until_iters is not None:
+            n = min(n, until_iters - state.iters)
+        if not use_graph:
+            for _ in range(n):
+                forward()
+            continue
+        w = state.window.shape[1]
+        key = (max_new_tokens, sampling, top_k, top_p, id(wq_layers))
+        g = state.graphs.get(w)
+        if g is None:
+            g = decode_graph.StepGraph(forward, state.tokens.device,
+                                       generator=state.generator if sampling else None, key=key)
+            g.window = state.window        # the window tensor the graph reads and writes
+            state.graphs[w] = g
+            n -= 1      # the warm-up before the capture was the first of these forwards
+        elif g.key != key:
+            raise ValueError("the segments of one request replay one captured forward a "
+                             "width: the settings changed between segments")
+        elif state.window is not g.window:   # resized since: move the window into the graph's
+            g.window.copy_(state.window)
+            state.window = g.window
+        g.replay(n)
 
 
 def run_adaptive_controller(state: LookaheadState, seg_fn: Callable, *, windows=(8, 16),
@@ -263,7 +329,7 @@ def run_adaptive_controller(state: LookaheadState, seg_fn: Callable, *, windows=
     acceptance) tuples. The state must have buf_window >= max(windows)."""
     small, big = windows
     w_cur = small
-    prev_iters, prev_tok = state.iters, int(state.steps.sum())
+    prev_iters, prev_tok = state.iters, int(state.steps.sum())   # iters: read by the segment
     bound = prev_iters
     while True:
         bound += check_iters

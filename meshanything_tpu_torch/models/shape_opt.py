@@ -31,10 +31,16 @@ wq=True runs the four per-layer matrices of the decode loop as int8 W8A8
 (``ops/wquant.py``); prefill, embeddings and lm_head stay in the
 activation dtype.
 
-The loop runs eagerly on the host and looks at the ``done`` flags only
-every ``sync_every`` steps; in between, a step taken after every row has
-finished leaves the token buffer untouched, so the stream is the one the
-JAX package's early-exiting ``while_loop`` leaves.
+The step reads every position from the state's device step counter
+``step_t`` (the cache row it writes, the live length K1-K3 read on the
+device, the token slot), and a step taken after every row has finished
+leaves every state tensor as it is, as JAX's ``while_loop`` never takes
+it. So a segment of the decode (``decode_segment``, JAX's) is a fixed
+count of steps with no host read inside it: on the card one CUDA graph
+of the step replayed (``runtime/decode_graph.py``), elsewhere the same
+step run eagerly. The host reads the counter once a segment
+(``decode_loop``: segments of ``sync_every`` steps). ``attn="megakernel"``
+stays eager on the card: K5 takes the write position by value.
 """
 from __future__ import annotations
 
@@ -65,6 +71,7 @@ from meshanything_tpu_torch.ops.megakernel import (
 )
 from meshanything_tpu_torch.ops.sampling import sample_token
 from meshanything_tpu_torch.ops.wquant import lin_dispatch, quantize_opt_layers
+from meshanything_tpu_torch.runtime import decode_graph
 
 ATTN_MODES = ("pallas", "pallas_int8", "pallas_int4", "megakernel")
 # a cache: one (2, L, B, S, H*D) tensor, or (values, scales) when quantized
@@ -187,13 +194,19 @@ def prefill_cache(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, a
 
 @dataclasses.dataclass
 class DecodeState:
-    step: int                   # tokens generated so far (host counter)
+    # The tensors are written in place, never rebound: a captured step
+    # replays over them.
+    step: int                   # the host's copy of step_t: exact while a row is live,
+    #                             read back from step_t at every segment's end
+    step_t: torch.Tensor        # () int64 on the device: tokens generated so far (JAX's
+    #                             ``step``; int64 because it indexes)
     tokens: torch.Tensor        # (B, gen_len) int64, eos-prefilled
     kv: Cache                   # written in place
     done: torch.Tensor          # (B,) bool: row emitted eos
     last_token: torch.Tensor    # (B,) int64: token fed to the next step
     generator: Optional[torch.Generator] = None  # sampling mode
     attn: str = "pallas"
+    graph: Optional[decode_graph.StepGraph] = None   # the request's captured step (card only)
 
 
 def init_decode_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, *,
@@ -211,59 +224,74 @@ def init_decode_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tenso
     tokens = torch.full((b, max_new_tokens), cfg.eos_token_id, dtype=torch.int64,
                         device=cond_embeds.device)
     tokens[:, 0] = first
-    return DecodeState(step=1, tokens=tokens, kv=kv, done=first == cfg.eos_token_id,
-                       last_token=first, generator=generator, attn=attn)
+    return DecodeState(step=1, step_t=torch.ones((), dtype=torch.int64, device=tokens.device),
+                       tokens=tokens, kv=kv, done=first == cfg.eos_token_id, last_token=first,
+                       generator=generator, attn=attn)
 
 
-def _step_attention(state: DecodeState, layer_idx: int, write_pos: int, q: torch.Tensor,
-                    k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Write the step's K/V row at ``write_pos`` (quantized first in the
-    int8/int4 tiers) and attend over rows [0, write_pos] -> (B, H, D)."""
+def _step_attention(state: DecodeState, layer_idx: int, write_pos: torch.Tensor,
+                    cur_len: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Write the step's K/V row at ``write_pos`` ((1,) int64; quantized
+    first in the int8/int4 tiers) and attend over rows [0, cur_len)
+    (``cur_len`` = write_pos + 1, a 0-d int32 tensor that K1-K3 read on
+    the device; their grid is planned for the whole cache) -> (B, H, D)."""
     if state.attn == "pallas":
-        state.kv[0, layer_idx, :, write_pos] = k
-        state.kv[1, layer_idx, :, write_pos] = v
-        return decode_attention(q, state.kv, layer_idx, write_pos + 1)
+        state.kv[0, layer_idx].index_copy_(1, write_pos, k[:, None].to(state.kv.dtype))
+        state.kv[1, layer_idx].index_copy_(1, write_pos, v[:, None].to(state.kv.dtype))
+        return decode_attention(q, state.kv, layer_idx, cur_len)
     values, scales = state.kv
     qrows = quantize_rows_for(state.attn)
     for plane, rows in enumerate((k, v)):
         codes, row_scale = qrows(rows)
-        values[plane, layer_idx, :, write_pos] = codes
-        scales[plane, layer_idx, :, 0, write_pos] = row_scale[:, 0]
+        values[plane, layer_idx].index_copy_(1, write_pos, codes[:, None])
+        scales[plane, layer_idx, :, 0].index_copy_(1, write_pos, row_scale)
     kernel = decode_attention_int8 if state.attn == "pallas_int8" else decode_attention_int4
-    return kernel(q, values, scales, layer_idx, write_pos + 1)
+    return kernel(q, values, scales, layer_idx, cur_len)
 
 
-def decode_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
-                wq_layers: Optional[Sequence] = None,
-                mega_layers: Optional[MegakernelLayers] = None, sampling: bool = False,
-                top_k: int = 50, top_p: float = 0.95, temperature: float = 1.0) -> torch.Tensor:
-    """One token for every row; updates ``state`` in place (cache row,
-    token buffer, flags) and returns the step's f32 logits (B, vocab).
+def step_body(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
+              wq_layers: Optional[Sequence] = None,
+              mega_layers: Optional[MegakernelLayers] = None, sampling: bool = False,
+              top_k: int = 50, top_p: float = 0.95, temperature: float = 1.0,
+              early_exit: bool = True) -> torch.Tensor:
+    """One token for every row, every position read from ``state.step_t``
+    on the device: updates the state's tensors in place (cache row, token
+    slot, flags, step_t) and returns the step's f32 logits (B, vocab). It
+    leaves the host's ``state.step`` alone and reads nothing back, so a
+    CUDA graph can capture it (``decode_segment``). With ``early_exit`` a
+    step taken after every row has finished changes no state tensor
+    (JAX's ``cond_fn`` never takes it); without, finished rows emit pad
+    to the end, as JAX's loop with ``early_exit=False`` does.
+
     ``wq_layers`` (``ops.wquant.quantize_opt_layers``) runs the layer
     matrices as W8A8; with ``attn="megakernel"`` the layer stack is one
-    K5 launch on ``mega_layers`` (``ops.megakernel.pack_megakernel_layers``)."""
+    K5 launch on ``mega_layers`` (``ops.megakernel.pack_megakernel_layers``),
+    which takes the write position by value from the host's ``state.step``."""
     ids = state.last_token
-    gen_index = state.step - 1
+    gen_index = state.step_t - 1
     dtype = p.cond_embed.dtype
     h, hd = cfg.num_heads, cfg.head_dim
     lin_e = lin_dispatch(wq_layers is not None)
     # the fed token was generated at gen_index and sits at absolute
     # position cond_length + gen_index
-    write_pos = cfg.cond_length + gen_index
+    write_pos = (cfg.cond_length + gen_index).reshape(1)
     x = embed_tokens(p, cfg, ids).to(dtype)
     x = x + p.face_positions[face_phase_ids(ids, gen_index, cfg.face_per_token)].to(dtype)
     x = x + p.cond_embed[1].to(dtype)
-    x = x + p.embed_positions[write_pos + cfg.pos_offset].to(dtype)
+    x = x + p.embed_positions.index_select(0, write_pos + cfg.pos_offset).to(dtype)
     b = x.shape[0]
     if state.attn == "megakernel":
-        x = decode_step_megakernel(x, mega_layers, state.kv, write_pos, write_pos + 1,
+        pos = cfg.cond_length + state.step - 1
+        x = decode_step_megakernel(x, mega_layers, state.kv, pos, pos + 1,
                                    num_heads=h, ln_eps=cfg.ln_eps)
     else:
+        cur_len = (write_pos[0] + 1).to(torch.int32)
         for layer_idx, layer in enumerate(p.layers):
             mats = layer if wq_layers is None else wq_layers[layer_idx]
             q, k, v = lin_e(x, mats.qkv).chunk(3, dim=-1)
-            o = _step_attention(state, layer_idx, write_pos, q.reshape(b, h, hd).contiguous(),
-                                k, v)
+            o = _step_attention(state, layer_idx, write_pos, cur_len,
+                                q.reshape(b, h, hd).contiguous(), k, v)
             x = layer.after_attention(x, o.reshape(b, h * hd), mats, lin_e)
     logits = lin(x, p.lm_head).float()   # keeps the activation dtype's rounding
 
@@ -271,12 +299,24 @@ def decode_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
                               temperature=temperature, generator=state.generator)
     # finished rows emit pad (HF generate semantics, meshanything.py:150)
     next_token = torch.where(state.done, cfg.pad_token_id, next_token)
-    # a step after every row finished is one the JAX loop never takes:
-    # it must leave the eos-prefilled buffer as it is
-    slot = state.tokens[:, state.step]
-    state.tokens[:, state.step] = torch.where(state.done.all(), slot, next_token)
-    state.done |= next_token == cfg.eos_token_id
-    state.last_token = next_token
+    slot = state.step_t.reshape(1)
+    written, advance = next_token, 1
+    if early_exit:
+        live = ~state.done.all()
+        written = torch.where(live, next_token, state.tokens.index_select(1, slot)[:, 0])
+        next_token = torch.where(live, next_token, state.last_token)
+        advance = live.long()
+    state.tokens.index_copy_(1, slot, written[:, None])
+    state.done.logical_or_(next_token == cfg.eos_token_id)
+    state.last_token.copy_(next_token)
+    state.step_t.add_(advance)
+    return logits
+
+
+def decode_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, **step_kw) -> torch.Tensor:
+    """``step_body`` run eagerly, and the host's step counter advanced
+    with it; returns the step's f32 logits (B, vocab)."""
+    logits = step_body(p, cfg, state, **step_kw)
     state.step += 1
     return logits
 
@@ -286,20 +326,73 @@ def check_wq(attn: str, wq: bool) -> None:
         raise ValueError("wq (int8 weights) does not compose with the megakernel path")
 
 
+def decode_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
+                   max_new_tokens: int, until: Optional[int] = None, early_exit: bool = True,
+                   wq_layers: Optional[Sequence] = None,
+                   mega_layers: Optional[MegakernelLayers] = None, graph: bool = True,
+                   sampling: bool = False, top_k: int = 50, top_p: float = 0.95,
+                   temperature: float = 1.0) -> DecodeState:
+    """JAX's ``decode_segment``: decode steps while the step is below
+    ``max_new_tokens`` and, when given, below ``until``, and, with
+    ``early_exit``, while some row is live. A step after every row has
+    finished changes nothing, so the segment runs its bound's count of
+    steps with no read inside it; at its end the host reads the device's
+    step counter once into ``state.step`` (short of the bound: every row
+    has finished), as JAX's host reads between segment dispatches.
+
+    On the card (``graph``, any tier but the megakernel's) the steps are
+    replays of one CUDA graph of ``step_body``, captured at the request's
+    first segment after one eager step (``runtime/decode_graph.py``) and
+    kept in ``state.graph``; a capture that fails raises. Elsewhere, and
+    with ``graph=False`` (the eager comparison), the same step runs
+    eagerly. Sampling with a generator that the installed torch cannot
+    register with a graph runs eagerly, with a warning."""
+    bound = max_new_tokens if until is None else min(int(until), max_new_tokens)
+    n = bound - state.step
+    step_kw = dict(wq_layers=wq_layers, mega_layers=mega_layers, sampling=sampling, top_k=top_k,
+                   top_p=top_p, temperature=temperature, early_exit=early_exit)
+    on_card = state.tokens.is_cuda
+    if n > 0 and decode_graph.use_graph(state.tokens.device, graph) and (
+            state.attn != "megakernel") and (not sampling or decode_graph.generator_capturable()):
+        key = (early_exit, sampling, top_k, top_p, temperature, id(wq_layers))
+        if state.graph is None:
+            state.graph = decode_graph.StepGraph(
+                lambda: step_body(p, cfg, state, **step_kw), state.tokens.device,
+                generator=state.generator if sampling else None, key=key)
+            n -= 1      # the warm-up before the capture was this segment's first step
+        elif state.graph.key != key:
+            raise ValueError("the segments of one request replay one captured step: "
+                             "the settings changed between segments")
+        state.graph.replay(n)
+    else:
+        for _ in range(max(n, 0)):
+            if not on_card and early_exit and bool(state.done.all()):
+                break       # on the CPU the read costs nothing, the no-op steps do
+            decode_step(p, cfg, state, **step_kw)
+    state.step = int(state.step_t)
+    return state
+
+
 def decode_loop(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *, max_new_tokens: int,
-                sync_every: int = 64, wq: bool = False, **sample_kw) -> DecodeState:
-    """Decode until ``max_new_tokens`` or until every row is done. The
-    host reads the ``done`` flags every ``sync_every`` steps only. With
-    ``wq`` the layer matrices are quantized once, here, and with
-    ``attn="megakernel"`` they are packed for K5 once, here (prefill ran
-    on the originals)."""
+                sync_every: int = 32, wq: bool = False, early_exit: bool = True,
+                graph: bool = True, **sample_kw) -> DecodeState:
+    """Decode until ``max_new_tokens`` or, with ``early_exit``, until
+    every row is done: segments (``decode_segment``) of ``sync_every``
+    steps, the host reading the step counter once after each, so the
+    steps past the last live one are at most a segment's no-op replays
+    and ``state.step`` ends where JAX's loop ends. With ``wq`` the layer
+    matrices are quantized once, here, and with ``attn="megakernel"``
+    they are packed for K5 once, here (prefill ran on the originals)."""
     check_wq(state.attn, wq)
     wq_layers = quantize_opt_layers(p.layers) if wq else None
     mega_layers = pack_megakernel_layers(p.layers) if state.attn == "megakernel" else None
     while state.step < max_new_tokens:
-        if (state.step - 1) % sync_every == 0 and bool(state.done.all()):
+        until = min(state.step + sync_every, max_new_tokens)
+        state = decode_segment(p, cfg, state, max_new_tokens=max_new_tokens, until=until,
+                               early_exit=early_exit, wq_layers=wq_layers,
+                               mega_layers=mega_layers, graph=graph, **sample_kw)
+        if state.step < until:
             break
-        decode_step(p, cfg, state, wq_layers=wq_layers, mega_layers=mega_layers, **sample_kw)
     return state
 
 

@@ -62,7 +62,67 @@ _MAX_HEADS = 16                     # the row-stream kernels: one warp a head
 _FOLD_COUNTERS = 65536              # int32 ticket counters a workspace: B * (1 + groups) of a call
 
 
-def _check(q: torch.Tensor, kv_cache: torch.Tensor, layer: int, cur_len: int) -> None:
+def _lengths(cur_len, max_len, s: int, device: torch.device):
+    """(cur_len, max_len) of a K1-K3 call. ``cur_len`` is a Python int
+    (``max_len`` defaults to it) or a 0-d int32 tensor on the call's
+    device that the kernel reads there (``max_len`` defaults to the
+    cache's length ``s``). ``max_len`` bounds the live length and plans
+    the grid; the host checks it, never a device length."""
+    if isinstance(cur_len, torch.Tensor):
+        if cur_len.dim() != 0 or cur_len.dtype != torch.int32:
+            raise TypeError(f"a tensor cur_len must be a 0-d int32 tensor, got shape "
+                            f"{tuple(cur_len.shape)} {cur_len.dtype}")
+        if cur_len.device != device:
+            raise ValueError(f"cur_len on {cur_len.device} but the call on {device}")
+        max_len = s if max_len is None else int(max_len)
+        if not 1 <= max_len <= s:
+            raise ValueError(f"max_len {max_len} outside [1, {s}]")
+        return cur_len, max_len
+    cur_len = int(cur_len)
+    max_len = cur_len if max_len is None else int(max_len)
+    if not 1 <= cur_len <= s:
+        raise ValueError(f"cur_len {cur_len} outside [1, {s}]")
+    if not cur_len <= max_len <= s:
+        raise ValueError(f"max_len {max_len} outside [cur_len {cur_len}, {s}]")
+    return cur_len, max_len
+
+
+def _live_rows(cur_len, n: int, device: torch.device) -> torch.Tensor:
+    """(n,) bool: row < cur_len (an int or a 0-d tensor on ``device``)."""
+    return torch.arange(n, device=device) < cur_len
+
+
+def _single_query_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            ks: Optional[torch.Tensor], vs: Optional[torch.Tensor],
+                            live: torch.Tensor) -> torch.Tensor:
+    """The plain math of K1-K3 over the rows ``live`` (N,) marks of k, v
+    (B, N, H*D) f32 (ks, vs (B, N) f32 scales or None). Rows past the
+    live ones are masked, never read into a sum: NaN there does not reach
+    the output. Every sum over rows runs in row order (``cumsum``), so a
+    call over more masked rows is bit-equal to one over fewer. Returns
+    (B, H, D) in q's dtype."""
+    b, h, d = q.shape
+    n = k.shape[1]
+    seen = live[None, :, None]
+    k = torch.where(seen, k, 0.0).reshape(b, n, h, d)
+    v = torch.where(seen, v, 0.0).reshape(b, n, h, d)
+    logits = (q.float()[:, None] * k).sum(dim=-1).transpose(1, 2) * (1.0 / math.sqrt(d))
+    if ks is not None:
+        logits = logits * torch.where(live, ks, 0.0)[:, None, :]
+    logits = torch.where(live, logits, float("-inf"))
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))       # (B, H, N)
+    l_sum = p.cumsum(dim=-1)[..., -1:]
+    if vs is not None:
+        p = p * torch.where(live, vs, 0.0)[:, None, :]
+        if q.dtype != torch.float32:     # the quantized tiers' bf16 P
+            p = p.to(q.dtype).float()
+    acc = (p.transpose(1, 2)[..., None] * v).cumsum(dim=1)[:, -1]    # (B, H, D)
+    return (acc / l_sum.clamp_min(1e-30)).to(q.dtype)
+
+
+def _check(q: torch.Tensor, kv_cache: torch.Tensor, layer: int, cur_len,
+           max_len: Optional[int] = None):
+    """Check a K1 call; returns its (cur_len, max_len) (``_lengths``)."""
     if q.dim() != 3 or kv_cache.dim() != 5:
         raise ValueError(f"expected q (B, H, D) and kv_cache (2, L, B, S, H*D); "
                          f"got {tuple(q.shape)} and {tuple(kv_cache.shape)}")
@@ -79,31 +139,29 @@ def _check(q: torch.Tensor, kv_cache: torch.Tensor, layer: int, cur_len: int) ->
         raise ValueError("q and kv_cache must be contiguous")
     if not 0 <= layer < n_layers:
         raise ValueError(f"layer {layer} outside [0, {n_layers})")
-    if not 1 <= cur_len <= s:
-        raise ValueError(f"cur_len {cur_len} outside [1, {s}]")
+    return _lengths(cur_len, max_len, s, q.device)
 
 
-def decode_attention_reference(q: torch.Tensor, kv_cache: torch.Tensor,
-                               layer: int, cur_len: int) -> torch.Tensor:
+def decode_attention_reference(q: torch.Tensor, kv_cache: torch.Tensor, layer: int, cur_len,
+                               max_len: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of K1: the same f32 math on the live rows.
 
     q (B, H, D); kv_cache (2, L, B, S, H*D); returns (B, H, D) in q's
     dtype. Logits in f32 scaled by 1/sqrt(D) after the dot; P.V with P
-    in f32; out = acc / max(l, 1e-30)."""
-    b, h, d = q.shape
-    k = kv_cache[0, layer, :, :cur_len].reshape(b, cur_len, h, d).float()
-    v = kv_cache[1, layer, :, :cur_len].reshape(b, cur_len, h, d).float()
-    logits = torch.einsum("bhd,bshd->bhs", q.float(), k) * (1.0 / math.sqrt(d))
-    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    acc = torch.einsum("bhs,bshd->bhd", p, v)
-    return (acc / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
+    in f32; out = acc / max(l, 1e-30). ``cur_len``, ``max_len`` as
+    ``decode_attention``'s: the rows [0, max_len) are taken and those
+    past cur_len masked, so a device length is never read on the host."""
+    cur_len, max_len = _lengths(cur_len, max_len, kv_cache.shape[3], q.device)
+    k = kv_cache[0, layer, :, :max_len].float()
+    v = kv_cache[1, layer, :, :max_len].float()
+    return _single_query_reference(q, k, v, None, None, _live_rows(cur_len, max_len, q.device))
 
 
 def _kernel():
     lib = _build.load("decode_attention")
     fn = lib.lib.mt_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_int64] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_int64] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.lib.mt_error_string.argtypes = [ctypes.c_int]
@@ -146,6 +204,7 @@ class FoldWorkspace:
             raise RuntimeError("the first call on a stream makes its fold counters: make it "
                                "outside a CUDA-graph capture (warm up on the capture stream)")
         self.device = device
+        self.length = torch.ones(1, dtype=torch.int32, device=device)   # an int call's cur_len
         self.counters = torch.zeros(_FOLD_COUNTERS, dtype=torch.int32, device=device)
         self.partials = torch.empty(1 << 20, dtype=torch.float32, device=device)
         self._outgrown: list = []    # kept: a captured CUDA graph may still write to them
@@ -167,6 +226,16 @@ class FoldWorkspace:
                                         device=self.device)
         base = self.partials.data_ptr()
         return base, base + 4 * n_o, self.counters.data_ptr()
+
+    def length_pointer(self, cur_len) -> int:
+        """The device address of a call's live length: a tensor length's
+        own, or an int written by a fill kernel into this stream's scalar
+        (no allocation and no host copy a call; the stream runs the fill
+        after the previous call has read the scalar and before this one)."""
+        if isinstance(cur_len, torch.Tensor):
+            return cur_len.data_ptr()
+        self.length.fill_(cur_len)
+        return self.length.data_ptr()
 
 
 _workspaces: dict = {}
@@ -201,7 +270,11 @@ def split_plan(batch: int, cur_len: int, num_sms: int, tile: int) -> tuple[int, 
     """(nsplit, group) of K1's grid (B, nsplit): about one block an SM
     over ``batch * nsplit`` and never more (a block holds most of an SM's
     shared memory), at most one split a tile so that no split is empty
-    (``split_bounds``); folded in groups of ``group`` splits."""
+    (``split_bounds``); folded in groups of ``group`` splits.
+
+    A call whose length the kernel reads on the device is launched with
+    the plan of its bound ``max_len``, and each block takes the plan of
+    the live length inside it (``csrc/split_fold.cuh::plan_for``)."""
     tiles = -(-cur_len // tile)
     nsplit = max(1, min(tiles, num_sms // batch))
     return nsplit, fold_group(nsplit)
@@ -233,17 +306,23 @@ def quant_window_split_plan(batch: int, n_rows: int, num_sms: int) -> tuple[int,
     return nsplit, fold_group(nsplit)
 
 
-def decode_attention(q: torch.Tensor, kv_cache: torch.Tensor,
-                     layer: int, cur_len: int) -> torch.Tensor:
+def decode_attention(q: torch.Tensor, kv_cache: torch.Tensor, layer: int, cur_len,
+                     max_len: Optional[int] = None) -> torch.Tensor:
     """Single-query attention of q (B, H, D) over rows [0, cur_len) of
     ``kv_cache[:, layer]``; returns (B, H, D) in q's dtype.
 
+    ``cur_len`` is a Python int or a 0-d int32 tensor on q's device, which
+    the kernel reads there (so that a CUDA graph of a decode step replays
+    at every length); ``max_len`` bounds it (default: the int, or the
+    cache's length for a tensor) and plans the grid. Either way the
+    output is that of the call planned for the live length, bit for bit.
+
     CUDA tensors go to the kernel (counted in ``decode_attention.launches``);
     CPU tensors to ``decode_attention_reference``."""
-    layer, cur_len = int(layer), int(cur_len)
-    _check(q, kv_cache, layer, cur_len)
+    layer = int(layer)
+    cur_len, max_len = _check(q, kv_cache, layer, cur_len, max_len)
     if q.device.type == "cpu":
-        return decode_attention_reference(q, kv_cache, layer, cur_len)
+        return decode_attention_reference(q, kv_cache, layer, cur_len, max_len)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda tensors, not {q.device}")
     b, h, d = q.shape
@@ -254,14 +333,16 @@ def decode_attention(q: torch.Tensor, kv_cache: torch.Tensor,
         raise ValueError("q and kv_cache must be 16-byte aligned")
     lib = _kernel()
     _, n_layers, _, s, _ = kv_cache.shape
-    nsplit, group = split_plan(b, cur_len, _num_sms(q.device.index), K1_TILE[q.dtype])
+    nsplit, group = split_plan(b, max_len, _num_sms(q.device.index), K1_TILE[q.dtype])
     stream = _stream_ptr(q.device)
-    o_part, ml_part, counters = fold_workspace(q.device, stream).pointers(b, nsplit, group, h, d)
+    ws = fold_workspace(q.device, stream)
+    o_part, ml_part, counters = ws.pointers(b, nsplit, group, h, d)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.mt_decode_attention(
             q.data_ptr(), kv_cache.data_ptr(), out.data_ptr(), o_part, ml_part, counters,
-            _DTYPE_CODES[q.dtype], b, h, d, n_layers, s, layer, cur_len, nsplit, group, stream)
+            ws.length_pointer(cur_len), _DTYPE_CODES[q.dtype], b, h, d, n_layers, s, layer,
+            max_len, nsplit, group, stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"{lib.mt_error_string(err).decode()} (cudaError {err})")
@@ -321,7 +402,8 @@ def _attend_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / l_sum.clamp_min(1e-30)).to(q.dtype)
 
 
-def _check_quant(q, values, scales, layer, cur_len, code_dtype, packed_div):
+def _check_quant(q, values, scales, layer, cur_len, max_len, code_dtype, packed_div):
+    """Check a K2/K3 call; returns its (cur_len, max_len) (``_lengths``)."""
     if q.dim() != 3 or values.dim() != 5 or scales is None or scales.dim() != 5:
         raise ValueError(f"expected q (B, H, D), values (2, L, B, S, packed) and scales "
                          f"(2, L, B, 1, S); got {tuple(q.shape)}, {tuple(values.shape)}, "
@@ -341,21 +423,22 @@ def _check_quant(q, values, scales, layer, cur_len, code_dtype, packed_div):
         raise ValueError("q, values and scales must be contiguous")
     if not 0 <= layer < n_layers:
         raise ValueError(f"layer {layer} outside [0, {n_layers})")
-    if not 1 <= cur_len <= s:
-        raise ValueError(f"cur_len {cur_len} outside [1, {s}]")
+    return _lengths(cur_len, max_len, s, q.device)
 
 
 def decode_attention_quant_reference(q: torch.Tensor, values: torch.Tensor,
-                                     scales: torch.Tensor, layer: int,
-                                     cur_len: int) -> torch.Tensor:
+                                     scales: torch.Tensor, layer: int, cur_len,
+                                     max_len: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of K2 (int8 values) and K3 (int4 plane
-    words): q (B, H, D) over rows [0, cur_len) of layer ``layer``."""
-    rows = slice(0, cur_len)
+    words): q (B, H, D) over rows [0, cur_len) of layer ``layer``;
+    ``cur_len`` and ``max_len`` as ``decode_attention_reference``'s."""
+    cur_len, max_len = _lengths(cur_len, max_len, values.shape[3], q.device)
+    rows = slice(0, max_len)
     k = cache_rows_f32(values[0, layer, :, rows])
     v = cache_rows_f32(values[1, layer, :, rows])
-    mask = torch.ones((q.shape[0], 1, cur_len), dtype=torch.bool, device=q.device)
-    return _attend_reference(q[:, None], k, v, scales[0, layer, :, 0, rows],
-                             scales[1, layer, :, 0, rows], mask)[:, 0]
+    return _single_query_reference(q, k, v, scales[0, layer, :, 0, rows],
+                                   scales[1, layer, :, 0, rows],
+                                   _live_rows(cur_len, max_len, q.device))
 
 
 def _fast_kernel():
@@ -372,7 +455,7 @@ def _fast_kernel():
 def _quant_kernel():
     lib = _build.load("decode_attention_quant").lib
     if lib.mt_decode_attention_quant.argtypes is None:
-        lib.mt_decode_attention_quant.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+        lib.mt_decode_attention_quant.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
                                                   + [ctypes.c_int64] * 9 + [ctypes.c_void_p])
         lib.mt_decode_attention_quant.restype = ctypes.c_int
         lib.mt_quant_error_string.argtypes = [ctypes.c_int]
@@ -394,7 +477,8 @@ def fast_split_plan(batch: int, n_rows: int, num_sms: int) -> tuple[int, int]:
 
 def quant_split_plan(batch: int, cur_len: int, num_sms: int) -> tuple[int, int]:
     """(nsplit, group) of K2's and K3's grid (B, nsplit): K1's plan
-    (``split_plan``) over tiles of ``QUANT_TILE`` rows."""
+    (``split_plan``) over tiles of ``QUANT_TILE`` rows, for the bound
+    ``max_len`` of a device-length call."""
     return split_plan(batch, cur_len, num_sms, QUANT_TILE)
 
 
@@ -419,11 +503,11 @@ def _streamed_scales_check(name: str, s: int, h: int) -> None:
         raise ValueError(f"{name}: {h} heads; the kernel takes at most {_MAX_HEADS}")
 
 
-def _decode_attention_quant(q, values, scales, layer, cur_len, *, fmt, name, counted):
-    layer, cur_len = int(layer), int(cur_len)
-    _check_quant(q, values, scales, layer, cur_len, *fmt)
+def _decode_attention_quant(q, values, scales, layer, cur_len, max_len, *, fmt, name, counted):
+    layer = int(layer)
+    cur_len, max_len = _check_quant(q, values, scales, layer, cur_len, max_len, *fmt)
     if q.device.type == "cpu":
-        return decode_attention_quant_reference(q, values, scales, layer, cur_len)
+        return decode_attention_quant_reference(q, values, scales, layer, cur_len, max_len)
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda tensors, not {q.device}")
     b, h, d = q.shape
@@ -431,35 +515,38 @@ def _decode_attention_quant(q, values, scales, layer, cur_len, *, fmt, name, cou
     _cuda_preflight(name, (q, values, scales), d)
     _streamed_scales_check(name, s, h)
     lib = _quant_kernel()
-    nsplit, group = quant_split_plan(b, cur_len, _num_sms(q.device.index))
+    nsplit, group = quant_split_plan(b, max_len, _num_sms(q.device.index))
     stream = _stream_ptr(q.device)
-    o_part, ml_part, counters = fold_workspace(q.device, stream).pointers(b, nsplit, group, h, d)
+    ws = fold_workspace(q.device, stream)
+    o_part, ml_part, counters = ws.pointers(b, nsplit, group, h, d)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.mt_decode_attention_quant(
             q.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(), o_part, ml_part,
-            counters, _CACHE_FORMATS[values.dtype], _DTYPE_CODES[q.dtype], b, h, d, n_layers, s,
-            layer, cur_len, nsplit, group, stream)
+            counters, ws.length_pointer(cur_len), _CACHE_FORMATS[values.dtype],
+            _DTYPE_CODES[q.dtype], b, h, d, n_layers, s, layer, max_len, nsplit, group, stream)
     _raise_on(err, name, lib.mt_quant_error_string)
     counted.launches += 1
     return out
 
 
 def decode_attention_int8(q: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
-                          layer: int, cur_len: int) -> torch.Tensor:
+                          layer: int, cur_len, max_len: Optional[int] = None) -> torch.Tensor:
     """K2: q (B, H, D) over rows [0, cur_len) of an int8 cache (values
     (2, L, B, S, H*D) int8, scales (2, L, B, 1, S) f32); returns
-    (B, H, D) in q's dtype."""
-    return _decode_attention_quant(q, values, scales, layer, cur_len, fmt=(torch.int8, 1),
-                                   name="decode_attention_int8", counted=decode_attention_int8)
+    (B, H, D) in q's dtype. ``cur_len``, ``max_len``: as K1's."""
+    return _decode_attention_quant(q, values, scales, layer, cur_len, max_len,
+                                   fmt=(torch.int8, 1), name="decode_attention_int8",
+                                   counted=decode_attention_int8)
 
 
 def decode_attention_int4(q: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
-                          layer: int, cur_len: int) -> torch.Tensor:
+                          layer: int, cur_len, max_len: Optional[int] = None) -> torch.Tensor:
     """K3: as K2 over an int4 cache of plane words (values
     (2, L, B, S, H*D/8) int32)."""
-    return _decode_attention_quant(q, values, scales, layer, cur_len, fmt=(torch.int32, 8),
-                                   name="decode_attention_int4", counted=decode_attention_int4)
+    return _decode_attention_quant(q, values, scales, layer, cur_len, max_len,
+                                   fmt=(torch.int32, 8), name="decode_attention_int4",
+                                   counted=decode_attention_int4)
 
 
 decode_attention_int8.launches = 0

@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -68,15 +68,17 @@ _HEAD_DIM = 64                     # the probe kernel is built for the 350M head
 Partials = Tuple[torch.Tensor, torch.Tensor]
 
 
-def _check_probe(q, kv, layer, cur_len, chunk, mode) -> None:
+def _check_probe(q, kv, layer, cur_len, chunk, mode, max_len=None):
+    """Check a T4 call; returns its (cur_len, max_len) as K1's check does."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is none of {MODES}")
-    da._check(q, kv, layer, cur_len)
+    lengths = da._check(q, kv, layer, cur_len, max_len)
     if chunk < 1:
         raise ValueError(f"chunk {chunk} must be positive")
     if mode in ("softmax", "pv") and chunk > kv.shape[-1]:
         raise ValueError(f"mode {mode!r} takes its logits from the first {chunk} columns of a "
                          f"row, but a row has {kv.shape[-1]}")
+    return lengths
 
 
 def k1_probe_plan(batch: int, cur_len: int, num_sms: int, mode: str, tile: int) -> tuple[int, int]:
@@ -156,7 +158,7 @@ def k1_probe_reference(q: torch.Tensor, kv_cache: torch.Tensor, layer: int, cur_
 def _kernel():
     lib = _build.load("k1_probe").lib
     if lib.mt_k1_probe.argtypes is None:
-        lib.mt_k1_probe.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+        lib.mt_k1_probe.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
                                     + [ctypes.c_int64] * 10 + [ctypes.c_void_p])
         lib.mt_k1_probe.restype = ctypes.c_int
         lib.mt_error_string.argtypes = [ctypes.c_int]
@@ -164,8 +166,8 @@ def _kernel():
     return lib
 
 
-def k1_probe(q: torch.Tensor, kv_cache: torch.Tensor, layer: int, cur_len: int, *,
-             chunk: int, mode: str) -> Union[torch.Tensor, Partials]:
+def k1_probe(q: torch.Tensor, kv_cache: torch.Tensor, layer: int, cur_len, *,
+             chunk: int, mode: str, max_len: Optional[int] = None) -> Union[torch.Tensor, Partials]:
     """K1's body with the parts ``mode`` names cut out (see the module's
     text): q (B, H, D) over rows [0, cur_len) of ``kv_cache[:, layer]``
     ((2, L, B, S, H*D), q's dtype). Returns (B, H, D) in q's dtype, or for
@@ -173,11 +175,14 @@ def k1_probe(q: torch.Tensor, kv_cache: torch.Tensor, layer: int, cur_len: int, 
 
     CUDA tensors go to the kernel (counted in ``k1_probe.launches``),
     whose tile is K1's: ``chunk`` must be ``K1_TILE[q.dtype]`` there, and
-    the head 64 wide. CPU tensors go to ``k1_probe_reference`` (one split)."""
-    layer, cur_len, chunk = int(layer), int(cur_len), int(chunk)
-    _check_probe(q, kv_cache, layer, cur_len, chunk, mode)
+    the head 64 wide. CPU tensors go to ``k1_probe_reference`` (one split).
+    ``cur_len``, ``max_len``: as K1's (the kernel reads the length on the
+    device; the grid is planned for max_len, so for the probe's plan pass
+    the live length or none)."""
+    layer, chunk = int(layer), int(chunk)
+    cur_len, max_len = _check_probe(q, kv_cache, layer, cur_len, chunk, mode, max_len)
     if q.device.type == "cpu":
-        return k1_probe_reference(q, kv_cache, layer, cur_len, chunk=chunk, mode=mode)
+        return k1_probe_reference(q, kv_cache, layer, int(cur_len), chunk=chunk, mode=mode)
     if q.device.type != "cuda":
         raise ValueError(f"k1_probe runs on cpu or cuda tensors, not {q.device}")
     b, h, d = q.shape
@@ -192,10 +197,11 @@ def k1_probe(q: torch.Tensor, kv_cache: torch.Tensor, layer: int, cur_len: int, 
         raise ValueError("q and kv_cache must be 16-byte aligned")
     lib = _kernel()
     _, n_layers, _, s, _ = kv_cache.shape
-    nsplit, group = k1_probe_plan(b, cur_len, da._num_sms(q.device.index), mode, tile)
+    nsplit, group = k1_probe_plan(b, max_len, da._num_sms(q.device.index), mode, tile)
     combine = mode != "no_combine"
     stream = da._stream_ptr(q.device)
-    o_ptr, ml_ptr, counters = da.fold_workspace(q.device, stream).pointers(b, nsplit, group, h, d)
+    ws = da.fold_workspace(q.device, stream)
+    o_ptr, ml_ptr, counters = ws.pointers(b, nsplit, group, h, d)
     out = torch.empty_like(q)
     if not combine:     # the partials are the result: tensors of the call's own
         slots = nsplit + -(-nsplit // group)
@@ -205,8 +211,8 @@ def k1_probe(q: torch.Tensor, kv_cache: torch.Tensor, layer: int, cur_len: int, 
     with torch.cuda.device(q.device):
         err = lib.mt_k1_probe(
             q.data_ptr(), kv_cache.data_ptr(), out.data_ptr(), o_ptr, ml_ptr, counters,
-            da._DTYPE_CODES[q.dtype], _MODE_CODES[mode], b, h, d, n_layers, s, layer, cur_len,
-            chunk, nsplit, group, stream)
+            ws.length_pointer(cur_len), da._DTYPE_CODES[q.dtype], _MODE_CODES[mode], b, h, d,
+            n_layers, s, layer, max_len, chunk, nsplit, group, stream)
     if err:
         raise RuntimeError(f"k1_probe kernel launch failed: "
                            f"{lib.mt_error_string(err).decode()} (cudaError {err})")

@@ -4,6 +4,12 @@ The filters mask exactly what ``meshanything_tpu/ops/sampling.py`` masks.
 The drawn token differs from the JAX package's for the same seed (torch
 generators are not threefry keys), so sampled streams are compared by
 distribution, greedy streams token for token.
+
+Every function here may run inside a CUDA-graph capture of a decode step:
+no host read of a device value, no shape that depends on the data. The
+draw is ``torch.multinomial``'s own one-sample path written out (an
+exponential variate per token, the argmax of p / e), because
+``multinomial`` checks its input on the host.
 """
 from __future__ import annotations
 
@@ -44,4 +50,6 @@ def sample_token(logits: torch.Tensor, *, sampling: bool, top_k: int = 50,
         logits = logits / temperature
     logits = top_p_filter(top_k_filter(logits, top_k), top_p)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    # P(argmax of p_i / e_i = i) = p_i for e_i ~ Exp(1) i.i.d.
+    expo = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / expo, dim=-1)

@@ -11,6 +11,14 @@ matrices. On a card ``generate`` first holds the batch against the
 card's memory (``runtime/phases.py::check_memory_budget``); a ``timer``
 (``runtime/profiling.py::PhaseTimer``) is fed the three fenced phases.
 
+On a card the decode runs as CUDA-graph replays (``decode_segment`` /
+``lookahead_segment``: one captured step or window forward a request,
+and a width, replayed once a step; ``runtime/decode_graph.py``), except
+``attn="megakernel"``'s, which stays eager. ``graph=False`` runs the same
+steps eagerly: the comparison that ``chip_smoke.py`` and the tools make,
+no CLI flag. ``decode_s`` includes the capture, whose seconds are also
+reported apart (``capture_s``, with the warm-up step in it).
+
 A batch whose generation raises (a kernel fault, an out-of-memory error)
 is retried ``max_retries`` times and then recorded as ``{"uid", "error":
 "<Type>: <message>"}`` for each of its meshes, as JAX
@@ -74,6 +82,13 @@ def load_inputs(input_type: str, paths: Sequence[str], *, num_points: int = 4096
     return samples
 
 
+def _graph_stats(graphs) -> dict:
+    """capture_s, graph_captures and graph_replays of a request's graphs."""
+    graphs = list(graphs)
+    return {"capture_s": sum(g.capture_s for g in graphs), "graph_captures": len(graphs),
+            "graph_replays": sum(g.replayed for g in graphs)}
+
+
 class InferencePipeline:
     """Runs batches through the three phases; batches are padded up to
     ``batch_size`` with copies of their last sample."""
@@ -81,7 +96,7 @@ class InferencePipeline:
     def __init__(self, model: ma.MeshAnything, cfg: MeshAnythingConfig, *,
                  batch_size: int = 1, bucket: int = 512, attn: str = "auto",
                  lookahead: "int | str" = 0, wq: bool = False,
-                 timer: PhaseTimer | None = None):
+                 timer: PhaseTimer | None = None, graph: bool = True):
         if not (lookahead == "adaptive" or (isinstance(lookahead, int) and lookahead >= 0)):
             raise ValueError(f"lookahead must be a window width or 'adaptive', not {lookahead!r}")
         self.model = model
@@ -95,6 +110,7 @@ class InferencePipeline:
         self.lookahead = lookahead
         self.wq = wq
         self.timer = timer
+        self.graph = graph
         self.device = next(model.parameters()).device
         self.param_bytes = param_tree_bytes(model)
 
@@ -114,7 +130,7 @@ class InferencePipeline:
         def segment(st, until=None, _window=None):
             return la_mod.lookahead_segment(m.opt, cfg.opt, st, max_new_tokens=gl,
                                             wq_layers=wq_layers, until_iters=until,
-                                            sampling=sampling)
+                                            sampling=sampling, graph=self.graph)
 
         trace = []
         if adaptive:
@@ -128,7 +144,8 @@ class InferencePipeline:
         out = {"tokens": state.tokens[:, :gl], "decode_steps": int(steps.max()) - 1,
                "window_forwards": state.iters,
                # tokens past the first, per row and window forward
-               "mean_accept": float(steps.sum() - b) / max(state.iters * b, 1)}
+               "mean_accept": float(steps.sum() - b) / max(state.iters * b, 1),
+               **_graph_stats(state.graphs.values())}
         if adaptive:
             out["window_trace"] = trace
         return out
@@ -165,9 +182,10 @@ class InferencePipeline:
                 m.opt, cfg.opt, cond, max_new_tokens=cfg.generate_length, bucket=self.bucket,
                 generator=generator, attn=self.attn, sampling=sampling)
             state = opt_mod.decode_loop(m.opt, cfg.opt, state, max_new_tokens=cfg.generate_length,
-                                        wq=self.wq, sampling=sampling)
-            out = {"tokens": state.tokens, "decode_steps": state.step - 1}
-            del state               # the cache goes before detok allocates
+                                        wq=self.wq, sampling=sampling, graph=self.graph)
+            out = {"tokens": state.tokens, "decode_steps": state.step - 1,
+                   **_graph_stats([state.graph] if state.graph is not None else [])}
+            del state               # the cache and the graph go before detok allocates
         done("decode", t0)
 
         t0 = time.perf_counter()
@@ -215,6 +233,9 @@ class InferencePipeline:
                     "encode_s": out["encode_s"],
                     "decode_s": out["decode_s"],
                     "detok_s": out["detok_s"],
+                    "capture_s": out["capture_s"],
+                    "graph_captures": out["graph_captures"],
+                    "graph_replays": out["graph_replays"],
                 }
                 for key in ("window_forwards", "mean_accept", "window_trace"):
                     if key in out:

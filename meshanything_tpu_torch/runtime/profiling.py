@@ -92,6 +92,15 @@ def cuda_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def kernel_device_us(evt) -> float:
+    """A profiler event's own device time in µs (its name differs across
+    torch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
 def device_memory_stats() -> dict:
     """Live and peak allocated bytes of every visible card ({} without
     one), from the caching allocator's counters."""

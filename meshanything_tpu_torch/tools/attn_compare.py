@@ -11,9 +11,11 @@ imports that tree's package and builds its kernels:
   * each tree's own ``chip_smoke.py`` phases ``k1_time`` and ``fast_time``
     (ms a call of K1-K4 at cur_len 7459 / base 7450, bf16 queries, B 1
     and 16, W 8, beside each tree's plain versions and the library call);
-  * ``quant_grid`` below, one source run in both trees: ms a call of K2,
-    K3 and the int8/int4 K4 at B 1, 2 and 16, cur_len 7459 and 300, W 8
-    and 16, beside the bound;
+  * ``quant_grid`` below, one source run in both trees: ms a call of K1,
+    K2, K3 and the int8/int4 K4 at B 1, 2 and 16, cur_len 7459 and 300, W 8
+    and 16, beside the bound (K1-K3 with the length on the device, the
+    grid planned for the whole cache, in a tree whose wrappers take one:
+    against an older tree, the price of the device length);
   * the CLI runs named by ``--cli`` at the full 350M width on seeded random
     bf16 weights, as the smoke makes them (default: the exact tier, K1,
     200 faces, and ``--lookahead 8``, the bf16 K4, 800 faces):
@@ -36,25 +38,34 @@ import sys
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 INT8_OPS_PER_S = 1979e12           # dense
+BF16_OPS_PER_S = 989e12            # dense
 
 
 def quant_grid(torch, da, card, batches=(1, 2, 16), lens=(7459, 300), windows=(8, 16)):
-    """ms a call of K2, K3 and the int8/int4 K4 with bf16 queries at every
-    (batch, cur_len, window), at the 350M width: device time of 10
-    CUDA-graph replays of a sweep over the 24 layers (so that each call
-    streams its rows from device memory), between CUDA events. K4 runs at base =
-    cur_len - 9 (7450 for 7459). The bound is the larger of the live
-    codes, scales, window rows, queries and outputs over 3.35 TB/s and
-    four operations a seen element over the int8 peak. Prints a
-    ``quant_time`` line a case and returns them. Self-contained (it
-    imports nothing of this repository): ``attn_compare`` runs its source
-    in either tree."""
+    """ms a call of K1 (bf16 cache), K2, K3 and the int8/int4 K4 with bf16
+    queries at every (batch, cur_len, window), at the 350M width: device
+    time of 10 CUDA-graph replays of a sweep over the 24 layers (so that
+    each call streams its rows from device memory), between CUDA events.
+    K1-K3 take the live length as the tree's decode step gives it: a 0-d
+    int32 device tensor with the grid planned for the whole cache where
+    the wrappers take one (``max_len``), else the int (planned for it).
+    K4 runs at base = cur_len - 9 (7450 for 7459). The bound is the larger
+    of the live rows (K2-K4: codes and scales), window rows, queries and
+    outputs over 3.35 TB/s and four operations a seen element over the
+    bf16 (K1) or int8 peak. Prints a ``quant_time`` line a case and
+    returns them. Self-contained (it imports nothing of this repository):
+    ``attn_compare`` runs its source in either tree."""
+    import inspect as _inspect
     import json as _json
 
     layers, heads, head_dim, seq = 24, 16, 64, 7680   # the 350M model, the smoke's cache
     hd = heads * head_dim
     gen = torch.Generator(device="cuda").manual_seed(21)
     records = []
+    on_device = "max_len" in _inspect.signature(da.decode_attention).parameters
+
+    def length(cur):
+        return torch.tensor(cur, dtype=torch.int32, device="cuda") if on_device else cur
 
     def graph_ms(sweep):
         side = torch.cuda.Stream()
@@ -77,17 +88,30 @@ def quant_grid(torch, da, card, batches=(1, 2, 16), lens=(7459, 300), windows=(8
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / (10 * layers)
 
-    def record(kernel, batch, cur, w, ms, moved, seen):
+    def record(kernel, batch, cur, w, ms, moved, seen, ops_per_s=INT8_OPS_PER_S):
         by_bytes = moved / HBM_BYTES_PER_S * 1e3
-        by_ops = 4 * batch * seen * hd / INT8_OPS_PER_S * 1e3
+        by_ops = 4 * batch * seen * hd / ops_per_s * 1e3
         bound_ms = max(by_bytes, by_ops)
         rec = {"phase": "quant_time", "kernel": kernel, "batch": batch, "cur_len": cur,
-               "window": w, "ms": ms, "bound_ms": bound_ms,
+               "window": w, "cur_len_on_device": on_device and w == 1, "ms": ms,
+               "bound_ms": bound_ms,
                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
                "share_of_data_sheet": bound_ms / ms, "moved_bytes": moved, "card": card}
         print(_json.dumps(rec), flush=True)
         records.append(rec)
 
+    for batch in batches:
+        kv = torch.randn((2, layers, batch, seq, hd), generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        q1 = torch.randn((batch, heads, head_dim), generator=gen, device="cuda").bfloat16()
+        for cur in lens:
+            n = length(cur)
+            ms = graph_ms(lambda: [da.decode_attention(q1, kv, i, n) for i in range(layers)])
+            # "k1_grid": apart from the k1_time phase's K1 rows
+            record("k1_grid", batch, cur, 1, ms, 2 * batch * cur * hd * 2 + 2 * batch * hd * 2,
+                   cur, BF16_OPS_PER_S)
+        del kv
+        torch.cuda.empty_cache()
     for bits in (8, 4):
         packed = hd if bits == 8 else hd // 8
         dtype = torch.int8 if bits == 8 else torch.int32
@@ -101,7 +125,8 @@ def quant_grid(torch, da, card, batches=(1, 2, 16), lens=(7459, 300), windows=(8
             row_bytes = packed * values.element_size() + 4     # codes and scale, one plane
             q1 = torch.randn((batch, heads, head_dim), generator=gen, device="cuda").bfloat16()
             for cur in lens:
-                ms = graph_ms(lambda: [single(q1, values, scales, i, cur) for i in range(layers)])
+                n = length(cur)
+                ms = graph_ms(lambda: [single(q1, values, scales, i, n) for i in range(layers)])
                 record("k2" if bits == 8 else "k3", batch, cur, 1, ms,
                        2 * batch * cur * row_bytes + 2 * batch * hd * 2, cur)
             for w in windows:
@@ -145,7 +170,7 @@ torch.set_grad_enabled(False)
 card = cs.card_line()
 cs.time_k1(torch, da, card)
 cs.time_fast(torch, da, card)
-HBM_BYTES_PER_S, INT8_OPS_PER_S = {hbm!r}, {ops!r}
+HBM_BYTES_PER_S, INT8_OPS_PER_S, BF16_OPS_PER_S = {hbm!r}, {ops!r}, {bf16_ops!r}
 {grid}
 quant_grid(torch, da, card)
 import json, os, tempfile
@@ -175,6 +200,7 @@ def child_program(root: str, cli_runs: list) -> str:
     """The program one tree's process runs: its smoke's timing phases,
     ``quant_grid`` (this file's source) and the CLI runs ``cli_runs``."""
     return _RUN.format(root=root, hbm=HBM_BYTES_PER_S, ops=INT8_OPS_PER_S,
+                       bf16_ops=BF16_OPS_PER_S,
                        grid=inspect.getsource(quant_grid),
                        cli_runs=[(name, *CLI_RUNS[name]) for name in cli_runs])
 
