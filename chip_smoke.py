@@ -116,12 +116,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
      run of phase 8 allocated (read from the card's allocator around the
      run), which it must not be below; then tools/memory_probe's peaks by
      phase at B=16 for the bf16, int8 and int4 caches, held to the same.
+  11. serving (``serving_phase``): ServingEngine(batching=4) behind
+     serve_http at the full 350M width, cut to 100 faces: four concurrent
+     greedy requests coalesced into at most two batched decodes, each
+     batch's tokens identical to InferencePipeline.generate on the same
+     padded batch (each row alone at B=1: agreement reported); a sampled
+     request twice with one seed (equal OBJs), an X-MC request, a
+     completion whose stream starts with its prompt, a malformed body
+     (400); a --fast engine (K4 int8, W8A8, lookahead 8) serving two
+     concurrent requests; K1's and the int8 K4's launches and graph
+     replays, and no other kernel's, counted per engine; then the CLI
+     with --mc (B=2) and with --complete_from through phase 8's checks.
 
 Before the last line it prints {"kernels": [...]} (K1-K5 and T1-T5, each
-with its time, its plain version's, its byte or operation bound, its
-share of the measured roof and the library call's time where there is
-one) and the card's name and power limit; the last line is
-{"ok": true, "device": {...}}.
+with its launches on the main and serving paths, its time, its plain
+version's, its byte or operation bound, its share of the measured roof
+and the library call's time where there is one) and the card's name and
+power limit; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1459,12 +1470,11 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
     the loader held while it made the weights is not a generation's."""
     import gc
 
-    from meshanything_tpu_torch.runtime import pipeline
-
+    from meshanything_tpu_torch.runtime import phases, pipeline
     from meshanything_tpu_torch.runtime.decode_graph import StepGraph
 
     estimates, peaks, pairs = [], [], []
-    check = pipeline.check_memory_budget
+    check = phases.check_memory_budget
     generate = pipeline.InferencePipeline.generate
     window_counts = ("window_launches", "quant_window_launches")
 
@@ -1508,13 +1518,13 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
     wrappers["k4"].quant_window_launches = 0
     StepGraph.captures = StepGraph.replays = 0
     t0 = time.perf_counter()
-    pipeline.check_memory_budget = recording_check
+    phases.check_memory_budget = recording_check
     if paired:
         pipeline.InferencePipeline.generate = paired_generate
     try:
         results = run()
     finally:
-        pipeline.check_memory_budget = check
+        phases.check_memory_budget = check
         pipeline.InferencePipeline.generate = generate
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1811,9 +1821,285 @@ def graph_loop(torch, wrappers: dict, cli, load_obj, card: str, roof_gbs) -> Non
          step_ms=step["ms_per_step"], card=card)
 
 
+SERVING_FACES = 100       # the serving phase's depth cut, F4's: 901 decode steps
+SERVING_BATCH = 4         # the micro-batcher's largest batch (sizes 1, 2, 4)
+
+
+class _Recorder:
+    """A PhaseRunner-shaped wrapper recording each call's input, prompt,
+    output tokens and stats (the micro-batcher's padded batches among
+    them); ``lock`` is the wrapped runner's, which the engine takes."""
+
+    def __init__(self, runner):
+        self.runner, self.lock, self.calls = runner, runner.lock, []
+
+    def __call__(self, pc, **kw):
+        import numpy as np
+
+        out = self.runner(pc, **kw)
+        self.calls.append({"pc": np.asarray(pc), "sampling": kw.get("sampling", False),
+                           "prompt": kw.get("prompt_ids"), "tokens": out.token_ids,
+                           "stats": out.stats})
+        return out
+
+
+def _serve(serving, engine) -> tuple:
+    """``serving.serve_http(engine)`` on a free port of 127.0.0.1, in a
+    thread -> (port, stop); ``stop()`` shuts the server down, which closes
+    the engine, and joins the thread."""
+    import threading
+
+    ready = []
+    thread = threading.Thread(target=serving.serve_http, args=(engine, "127.0.0.1", 0),
+                              kwargs={"ready": ready.append}, daemon=True)
+    thread.start()
+    t0 = time.time()
+    while not ready:
+        if not thread.is_alive() or time.time() - t0 > 60:
+            raise AssertionError("the HTTP server did not start")
+        time.sleep(0.01)
+
+    def stop():
+        ready[0].shutdown()
+        thread.join(timeout=120)
+        if thread.is_alive():
+            raise AssertionError("the HTTP server did not stop")
+    return ready[0].server_address[1], stop
+
+
+def _post(port: int, body: bytes, headers: dict) -> tuple:
+    """POST /generate -> (status, headers, body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=body, method="POST",
+                                 headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _concurrently(jobs: list) -> list:
+    """Each (port, body, headers) request on its own thread, all at once."""
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        return list(pool.map(lambda job: _post(*job), jobs))
+
+
+def _serving_counts(wrappers: dict) -> dict:
+    from meshanything_tpu_torch.runtime.decode_graph import StepGraph
+
+    return {**{k: fn.launches for k, fn in wrappers.items()},
+            "k4_window": wrappers["k4"].window_launches,
+            "k4_quant_window": wrappers["k4"].quant_window_launches,
+            "graph_captures": StepGraph.captures, "graph_replays": StepGraph.replays}
+
+
+def _zero_counts(wrappers: dict) -> None:
+    from meshanything_tpu_torch.runtime.decode_graph import StepGraph
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    wrappers["k4"].window_launches = wrappers["k4"].quant_window_launches = 0
+    StepGraph.captures = StepGraph.replays = 0
+
+
+def serving_phase(torch, wrappers: dict, cli, load_obj, card: str) -> tuple:
+    """Phase 11: the serving path at the full 350M width on seeded random
+    bf16 weights, cut to SERVING_FACES faces. ``ServingEngine(batching=4)``
+    behind ``serve_http`` on 127.0.0.1 (a free port, in a thread) answers,
+    in JSON mode: four concurrent greedy requests (three meshes, one of
+    them twice with another seed), which must coalesce into at most two
+    batched decodes; then, at once, a sampled request sent twice with one
+    seed (equal OBJs), an ``X-MC`` request, a completion request
+    (``X-Partial-Obj-B64``: three faces of its input) whose stream must
+    start with its prompt, and a malformed body (400). A second engine
+    with the ``--fast`` tier (K4 int8, W8A8, lookahead 8) serves two
+    concurrent requests. The counts are set to 0 before each engine and
+    read after its server stopped: K1 (exact engine) and the int8 K4
+    (fast engine) must have launched, and graphs replayed, and no other
+    kernel. Then every coalesced batch is decoded again through
+    ``InferencePipeline.generate`` on the same padded batch (the same
+    program: tokens identical), and each of its rows alone at B=1 (the
+    agreement is reported, not held: cuBLAS picks other GEMMs by rows).
+    Last, the CLI with ``--mc`` (B=2) and with ``--complete_from``
+    through ``run_main_path``. Returns (those runs' records, the serving
+    path's launches: K1 and the int8 K4 through the wrappers and in the
+    replayed graphs)."""
+    import base64
+
+    import numpy as np
+
+    from meshanything_tpu_torch import serving
+    from meshanything_tpu_torch.config import MeshAnythingConfig
+    from meshanything_tpu_torch.geometry import Mesh, save_obj
+    from meshanything_tpu_torch.runtime.checkpoint import init_random_params
+    from meshanything_tpu_torch.runtime.phases import PhaseRunner
+    from meshanything_tpu_torch.runtime.pipeline import InferencePipeline
+
+    cfg = MeshAnythingConfig(dtype="bfloat16", n_max_triangles=SERVING_FACES)
+    model = init_random_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                               cfg.activation_dtype)
+    failures, runs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        npy, mesh_dir = write_inputs(tmp)
+        cube, octa = (load_obj(os.path.join(mesh_dir, n)) for n in ("cube.obj", "octa.obj"))
+        tet = Mesh(np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], float),
+                   np.array([[0, 2, 1], [0, 1, 3], [1, 2, 3], [0, 3, 2]]))
+
+        def obj_bytes(mesh, name):
+            path = os.path.join(tmp, name)
+            save_obj(mesh, path)
+            with open(path, "rb") as fh:
+                return fh.read()
+
+        bodies = {"cube": obj_bytes(cube, "cube_in.obj"), "octa": obj_bytes(octa, "octa_in.obj"),
+                  "tet": obj_bytes(tet, "tet_in.obj")}
+        partial = obj_bytes(Mesh(cube.vertices, cube.faces[:3]), "partial.obj")
+        as_json = {"Accept": "application/json"}
+
+        _zero_counts(wrappers)
+        exact = _Recorder(PhaseRunner(model, cfg))
+        engine = serving.ServingEngine(model, cfg, runner=exact, batching=SERVING_BATCH,
+                                       artifacts_dir=os.path.join(tmp, "a"))
+        batcher = engine._runner
+        # a wider batching window than the default 0.05 s: the requests' host work
+        # (sampling, clean-up) must not split the four into more batches
+        batcher._max_wait = 0.5
+        port, stop = _serve(serving, engine)
+        try:
+            greedy = _concurrently([
+                (port, bodies["cube"], {**as_json, "X-Seed": "0"}),
+                (port, bodies["octa"], {**as_json, "X-Seed": "0"}),
+                (port, bodies["tet"], {**as_json, "X-Seed": "0"}),
+                (port, bodies["cube"], {**as_json, "X-Seed": "1"})])
+            greedy_calls = batcher.batch_calls
+            greedy_records = list(exact.calls)
+            sampled = {**as_json, "X-Seed": "7", "X-Sampling": "1"}
+            rest = _concurrently([
+                (port, bodies["octa"], sampled), (port, bodies["octa"], sampled),
+                (port, bodies["tet"], {**as_json, "X-Seed": "0", "X-MC": "1", "X-Renders": "0"}),
+                (port, bodies["cube"], {**as_json, "X-Seed": "0", "X-Partial-Obj-B64":
+                                        base64.b64encode(partial).decode()}),
+                (port, b"this is not a mesh", {"X-Seed": "0"})])
+        finally:
+            stop()
+        exact_counts = _serving_counts(wrappers)
+        exact_sizes = list(batcher.batch_sizes_served)
+
+        _zero_counts(wrappers)
+        fast_runner = _Recorder(PhaseRunner(model, cfg, attn="pallas_int8", lookahead=8,
+                                            wq=True))
+        fast = serving.ServingEngine(model, cfg, runner=fast_runner, batching=SERVING_BATCH,
+                                     artifacts_dir=os.path.join(tmp, "f"))
+        fast._runner._max_wait = 0.5
+        port, stop = _serve(serving, fast)
+        try:
+            fast_out = _concurrently([(port, bodies["cube"], {**as_json, "X-Seed": "0"}),
+                                      (port, bodies["octa"], {**as_json, "X-Seed": "0"})])
+        finally:
+            stop()
+        fast_counts = _serving_counts(wrappers)
+        fast_sizes = list(fast._runner.batch_sizes_served)
+
+        statuses = ([s for s, _, _ in greedy], [s for s, _, _ in rest],
+                    [s for s, _, _ in fast_out])
+        if statuses != ([200] * 4, [200, 200, 200, 200, 400], [200, 200]):
+            failures.append(f"statuses {statuses}: {[b[:300] for _, _, b in greedy + rest]}")
+        payloads = [json.loads(b) if s == 200 else None for s, _, b in greedy + rest + fast_out]
+        if greedy_calls > 2:
+            failures.append(f"the four greedy requests took {greedy_calls} batched decodes")
+        if payloads[4] is None or payloads[4]["output_obj"] != payloads[5]["output_obj"]:
+            failures.append("the sampled pair with one seed gave different OBJs")
+        completion = [c for c in exact.calls if c["prompt"] is not None]
+        prompt_ok = len(completion) == 1 and torch.equal(
+            completion[0]["tokens"][:, :completion[0]["prompt"].shape[1]],
+            completion[0]["prompt"].cpu())
+        if not prompt_ok:
+            failures.append("the completion's stream does not start with its prompt")
+        exact_only = {k: v for k, v in exact_counts.items()
+                      if k not in ("k1", "graph_captures", "graph_replays") and v}
+        fast_only = {k: v for k, v in fast_counts.items()
+                     if k not in ("k4", "k4_quant_window", "graph_captures", "graph_replays")
+                     and v}
+        if (exact_counts["k1"] != 2 * L * exact_counts["graph_captures"]
+                or not exact_counts["graph_replays"] or exact_only):
+            failures.append(f"exact engine counts {exact_counts}")
+        if (not fast_counts["k4_quant_window"] or fast_counts["k4"] != fast_counts[
+                "k4_quant_window"] or not fast_counts["graph_replays"] or fast_only):
+            failures.append(f"fast engine counts {fast_counts}")
+
+        # the coalesced batches again, through the pipeline (the same program), and
+        # each row alone at B=1
+        same_batch, agreement = [], []
+        for rec in greedy_records:
+            pipe = InferencePipeline(model, cfg, batch_size=len(rec["pc"]))
+            again = pipe.generate(torch.from_numpy(rec["pc"]).cuda())["tokens"].cpu()
+            same_batch.append(bool(torch.equal(again, rec["tokens"])))
+            rows = len(rec["pc"])            # less the batcher's padding: copies of the last row
+            while rows > 1 and np.array_equal(rec["pc"][rows - 1], rec["pc"][rows - 2]):
+                rows -= 1
+            for row in range(rows):
+                alone = InferencePipeline(model, cfg).generate(
+                    torch.from_numpy(rec["pc"][row:row + 1]).cuda())["tokens"].cpu()
+                agreement.append(float((alone[0] == rec["tokens"][row]).float().mean()))
+        if not same_batch or not all(same_batch):
+            failures.append(f"coalesced rows differ from InferencePipeline.generate on the "
+                            f"same batch: {same_batch}")
+
+        def runner_calls(recorder):
+            return [{"batch": len(c["pc"]), "sampling": c["sampling"],
+                     "prompt_tokens": 0 if c["prompt"] is None else c["prompt"].shape[1],
+                     **{f: c["stats"].get(f) for f in ("encode_s", "decode_s", "detok_s",
+                                                       "capture_s", "decode_steps",
+                                                       "window_forwards")}}
+                    for c in recorder.calls]
+
+        def by_kind(indices):
+            return {f: [payloads[i][f] if payloads[i] else None for i in indices]
+                    for f in ("latency_s", "artifact_export_s", "capture_s")}
+
+        emit("serving", faces=SERVING_FACES,
+             greedy=by_kind(range(4)), sampled=by_kind((4, 5)), mc=by_kind((6,)),
+             completion=by_kind((7,)), fast=by_kind((9, 10)),
+             statuses=statuses, greedy_batch_calls=greedy_calls,
+             batch_sizes_served={"exact": exact_sizes, "fast": fast_sizes},
+             coalesced_equal_pipeline=same_batch, row_alone_agreement=agreement,
+             completion_prompt_echoed=prompt_ok,
+             runner_calls={"exact": runner_calls(exact), "fast": runner_calls(fast_runner)},
+             launches={"exact": exact_counts, "fast": fast_counts},
+             replayed_launches={"k1": L * exact_counts["graph_replays"],
+                                "k4_int8": L * fast_counts["graph_replays"]},
+             card=card)
+        if failures:
+            raise AssertionError(f"serving: {failures}")
+        del engine, fast, exact, fast_runner, model
+        torch.cuda.empty_cache()
+
+        # the CLI's --mc and --complete_from (the same depth cut)
+        common = ["--out_dir", os.path.join(tmp, "out"), "--random_weights", "--seed", "0",
+                  "--dtype", "bfloat16", "--device", "cuda", "--n_max_triangles",
+                  str(SERVING_FACES)]
+        partial_model_space = os.path.join(tmp, "partial_model_space.obj")
+        save_obj(Mesh(cube.vertices * 0.8 - 0.4, cube.faces[:3]), partial_model_space)
+        for name, argv, expect in (
+                ("cli_mc", ["--input_type", "mesh", "--input_dir", mesh_dir, "--mc",
+                            "--batchsize_per_gpu", "2", *common], 2),
+                ("cli_complete_from", ["--input_type", "pc_normal", "--input_path", npy,
+                                       "--complete_from", partial_model_space, *common], 1)):
+            runs.append(run_main_path(torch, wrappers, load_obj, name,
+                                      lambda argv=argv: cli.main(argv), expect, "k1",
+                                      max_faces=SERVING_FACES, argv=argv))
+    serving_launches = {"k1": exact_counts["k1"], "k4_int8": fast_counts["k4_quant_window"],
+                        "k1_replayed": L * exact_counts["graph_replays"],
+                        "k4_int8_replayed": L * fast_counts["graph_replays"]}
+    return runs, serving_launches
+
+
 PHASES = ("k4_check", "k1_check", "k23_check", "graph_replay", "device_length", "k1_time",
           "fast_time", "k5_check", "k5_replay", "k5_time", "probe_check", "probe_time",
-          "measurement_path", "main_path", "graph_loop", "agreement", "floor")
+          "measurement_path", "main_path", "graph_loop", "agreement", "floor", "serving")
 
 
 def parse_only(argv: list) -> set:
@@ -1922,10 +2208,14 @@ def main(argv=None) -> int:
         small_input_agreement(torch)
     if "floor" in only:
         floors_and_budget(torch, runs, roof_gbs, card)
+    serving_launches = {}
+    if "serving" in only:
+        serving_runs, serving_launches = serving_phase(torch, wrappers, cli, load_obj, card)
+        runs += serving_runs
 
     if only == set(PHASES):
-        print(json.dumps(kernels_line(runs, times, probe_times, probe_launches, worst, roof_gbs)),
-              flush=True)
+        print(json.dumps(kernels_line(runs, times, probe_times, probe_launches, worst, roof_gbs,
+                                      serving_launches)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1980,11 +2270,12 @@ def drive_main_path(torch, wrappers: dict, cli, load_obj, paired: bool = False) 
 
 
 def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dict, worst: dict,
-                 roof_gbs: float) -> dict:
+                 roof_gbs: float, serving_launches: dict) -> dict:
     """The ``kernels`` line: K1-K5 and T1-T5, each with its launches on the
-    main path, its largest error, its time, its plain version's, its bound,
-    the library call's time where there is one, and its share of the
-    measured roof."""
+    main path and the serving path (``launches``; the serving path's also
+    apart: ``launches_serving``), its largest error, its time, its plain
+    version's, its bound, the library call's time where there is one, and
+    its share of the measured roof."""
     launches = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
     window_launches = sum(r["k4_window_launches"] for r in runs)
     quant_window_launches = sum(r["k4_quant_window_launches"] for r in runs)
@@ -2051,6 +2342,11 @@ def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dic
         **{f"{field}_b{b}_len{n}": t[(b, n)][field] for b in K5_TIME_BATCHES for n in K5_TIME_LENS
            for field in ("ms", "plain_ms", "bound_ms", "k1_loop_ms")}})
     kernels[0]["launches_measurement_path"] = probe_launches["k1"]   # bwprobe and T4's check
+    # the serving path: K1 in the exact engine, the int8 K4 in the --fast engine
+    for entry, key in ((kernels[0], "k1"), (kernels[3], "k4_int8")):
+        entry["launches"] += serving_launches[key]
+        entry["launches_serving"] = serving_launches[key]
+        entry["replayed_launches_serving"] = serving_launches[key + "_replayed"]
     kernels += probe_kernel_entries(probe_times, probe_launches, worst)
     data_sheet_gbs = HBM_BYTES_PER_S / 1e9
     for entry in kernels:

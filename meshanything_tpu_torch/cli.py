@@ -11,9 +11,13 @@ The fast tier: ``--attn pallas_int8|pallas_int4`` (quantized KV cache),
 ``--lookahead N|adaptive`` (Jacobi windows), ``--wq`` (int8 W8A8 layer
 matrices), and ``--fast``, which means ``--wq --attn pallas_int8
 --lookahead 8`` with an explicit ``--attn``/``--lookahead`` winning over
-the preset. Flags of slices not ported yet raise. As in the JAX CLI,
+the preset. ``--mc`` watertights mesh inputs through the distance field
+and marching tetrahedra first; ``--complete_from`` continues the faces of
+a partial mesh (mesh completion). Flags of slices not ported yet
+(``--pretrained_weights``, ``--attn xla``) raise. As in the JAX CLI,
 ``--attn megakernel`` is no choice: ``InferencePipeline(attn="megakernel")``
-is that path's entry.
+is that path's entry. ``python -m meshanything_tpu_torch.serving`` takes
+the same flags and serves over HTTP.
 """
 from __future__ import annotations
 
@@ -59,10 +63,14 @@ def get_args(argv=None):
     parser.add_argument("--fast", default=False, action="store_true",
                         help="preset: --wq --attn pallas_int8 --lookahead 8; an explicit "
                              "--attn/--lookahead wins over the preset")
-    # flags of later slices: accepted so that they fail with a clear message
+    parser.add_argument("--mc", default=False, action="store_true",
+                        help="watertight mesh inputs (distance field + marching tetrahedra) "
+                             "before sampling")
+    parser.add_argument("--complete_from", default=None, type=str,
+                        help="partial mesh (model output space [-0.5, 0.5)) whose faces seed "
+                             "the decoder: mesh completion")
+    # a flag of a later slice: accepted so that it fails with a clear message
     parser.add_argument("--pretrained_weights", default=None, type=str)
-    parser.add_argument("--mc", default=False, action="store_true")
-    parser.add_argument("--complete_from", default=None, type=str)
     return apply_fast_preset(parser.parse_args(argv))
 
 
@@ -82,17 +90,16 @@ def apply_fast_preset(args):
 def check_ported(args) -> None:
     """Raise on flags whose code is not ported yet."""
     later = {
-        "--mc": args.mc,
         "--pretrained_weights": args.pretrained_weights is not None,
         "--attn": args.attn not in ("auto", "pallas", "pallas_int8", "pallas_int4"),
-        "--complete_from": args.complete_from is not None,
     }
     named = [flag for flag, given in later.items() if given]
     if named:
         raise NotImplementedError(
             f"{', '.join(named)}: not ported yet to meshanything_tpu_torch "
             "(it runs the exact and the fast tiers of the decode: --attn "
-            "pallas|pallas_int8|pallas_int4, --lookahead, --wq, --fast)")
+            "pallas|pallas_int8|pallas_int4, --lookahead, --wq, --fast; --mc, "
+            "--complete_from)")
     if not args.random_weights:
         raise NotImplementedError(
             "checkpoint loading is not ported yet: pass --random_weights")
@@ -133,7 +140,8 @@ def load_params(args, cfg, device):
 def collect_inputs(args):
     if args.input_dir is not None:
         names = sorted(os.listdir(args.input_dir))
-        suffixes = (".npy",) if args.input_type == "pc_normal" else (".obj", ".ply")
+        suffixes = ((".npy",) if args.input_type == "pc_normal"
+                    else (".ply", ".obj", ".stl", ".off", ".glb"))
         return [os.path.join(args.input_dir, n) for n in names if n.endswith(suffixes)]
     if args.input_path is not None:
         return [args.input_path]
@@ -152,15 +160,27 @@ def main(argv=None):
     os.makedirs(out_dir, exist_ok=True)
 
     model = load_params(args, cfg, device)
-    samples = load_inputs(args.input_type, collect_inputs(args),
+    samples = load_inputs(args.input_type, collect_inputs(args), marching_cubes=args.mc,
                           num_points=cfg.perceiver.num_points, seed=args.seed)
     print(f"dataset total data samples: {len(samples)}")
+
+    prompt_tokens = None
+    if args.complete_from:
+        from meshanything_tpu_torch.geometry import load_mesh
+        from meshanything_tpu_torch.models.meshanything import build_face_prompt
+
+        partial = load_mesh(args.complete_from)
+        face_coords = partial.vertices[partial.faces]          # (nf, 3, 3)
+        prompt_tokens = build_face_prompt(cfg, face_coords[None])[0].numpy()
+        print(f"mesh completion: seeding {len(partial.faces)} faces "
+              f"({len(prompt_tokens)} tokens) from {args.complete_from}")
 
     pipe = InferencePipeline(model, cfg, batch_size=args.batchsize_per_gpu, bucket=args.bucket,
                              attn=args.attn, lookahead=args.lookahead, wq=args.wq)
     begin = time.time()
     print("Generation Start!!!")
-    results = pipe.run(samples, out_dir, sampling=args.sampling, seed=args.seed)
+    results = pipe.run(samples, out_dir, sampling=args.sampling, seed=args.seed,
+                       prompt_tokens=prompt_tokens)
     for r in results:
         print(f"{r.get('obj_path', r['uid'])} Over!!")
     print(f"Total time: {time.time() - begin}")

@@ -1,6 +1,17 @@
 """JAX-free host geometry for the port (copies of the numpy stage of
 ``meshanything_tpu/geometry``)."""
-from meshanything_tpu_torch.geometry.normalize import normalize_pc_cli
-from meshanything_tpu_torch.geometry.obj_io import Mesh, load_mesh, load_obj, load_ply, save_obj
+from meshanything_tpu_torch.geometry.normalize import (
+    normalize_mesh_app,
+    normalize_pc_cli,
+    normalize_vertices,
+)
+from meshanything_tpu_torch.geometry.obj_io import (
+    Mesh,
+    detect_mesh_format,
+    load_mesh,
+    load_obj,
+    load_ply,
+    save_obj,
+)
 from meshanything_tpu_torch.geometry.postprocess import faces_to_mesh, postprocess_faces
 from meshanything_tpu_torch.geometry.sample import sample_surface_with_normals

@@ -1,13 +1,15 @@
-"""Mesh file IO for the port: OBJ / PLY loading and OBJ export.
+"""Mesh file IO for the port: OBJ / PLY / STL / OFF / GLB loading, format
+sniffing and OBJ export.
 
 A JAX-free copy of ``meshanything_tpu/geometry/obj_io.py``, identical in
-behaviour for the formats it keeps. The port cannot import the original:
+behaviour. The port cannot import the original:
 ``meshanything_tpu/__init__.py`` imports its ``config.py``, which imports
-``jax.numpy``. The .stl/.off/.glb loaders belong to a later slice.
+``jax.numpy``.
 """
 from __future__ import annotations
 
 import dataclasses
+import struct
 from typing import Optional
 
 import numpy as np
@@ -140,13 +142,217 @@ def load_ply(path: str) -> Mesh:
     return Mesh(vertices=vertices, faces=np.asarray(faces, dtype=np.int64).reshape(-1, 3))
 
 
+def load_stl(path: str) -> Mesh:
+    """STL, binary or ascii. Binary: 80-byte header, uint32 count,
+    50-byte triangle records. Some binary files start with 'solid', so
+    the record-count arithmetic decides, not the header text. Vertices
+    are per-triangle in STL; duplicates are kept (the postprocess merge
+    collapses them, geometry/postprocess.py)."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    is_binary = True
+    if data[:5].lower() == b"solid":
+        # some binary exporters also start the 80-byte header with
+        # 'solid'; the record-size arithmetic decides. Trailing bytes
+        # are tolerated (trimesh-style >=), not required to match
+        if len(data) >= 84:
+            (count,) = struct.unpack_from("<I", data, 80)
+            is_binary = count > 0 and len(data) >= 84 + 50 * count
+        else:
+            is_binary = False
+    if is_binary:
+        (count,) = struct.unpack_from("<I", data, 80)
+        rec = np.frombuffer(data, dtype=np.uint8, count=50 * count, offset=84)
+        rec = rec.reshape(count, 50)
+        tri = rec[:, 12:48].copy().view("<f4").reshape(count, 3, 3)
+        vertices = tri.reshape(-1, 3).astype(np.float64)
+    else:
+        coords = []
+        for line in data.decode("ascii", errors="replace").splitlines():
+            parts = line.split()
+            if parts[:1] == ["vertex"]:
+                coords.append([float(parts[1]), float(parts[2]), float(parts[3])])
+        vertices = np.asarray(coords, dtype=np.float64)
+    faces = np.arange(len(vertices), dtype=np.int64).reshape(-1, 3)
+    return Mesh(vertices=vertices, faces=faces)
+
+
+def load_off(path: str) -> Mesh:
+    """OFF (Object File Format): 'OFF' header (counts may share the
+    header line), nV nF nE, vertex rows, then 'n i0 i1 ...' face rows
+    (fan-triangulated like every other polygon here)."""
+    with open(path, "r", errors="replace") as fh:
+        tokens = []
+        for line in fh:
+            hash_at = line.find("#")
+            if hash_at >= 0:
+                line = line[:hash_at]
+            tokens.extend(line.split())
+    if not tokens or tokens[0].upper() != "OFF":
+        # COFF/NOFF/STOFF carry extra per-vertex fields this parser does
+        # not model — refuse clearly instead of corrupting coordinates
+        raise ValueError(f"{path}: not a plain OFF file "
+                         f"(header {tokens[0][:8] if tokens else ''!r})")
+    pos = 1
+    nv, nf = int(tokens[pos]), int(tokens[pos + 1])
+    pos += 3  # skip edge count
+    vertices = np.asarray(tokens[pos:pos + 3 * nv], dtype=np.float64).reshape(nv, 3)
+    pos += 3 * nv
+    faces = []
+    for _ in range(nf):
+        n = int(tokens[pos])
+        poly = [int(t) for t in tokens[pos + 1: pos + 1 + n]]
+        pos += 1 + n
+        faces.extend(_triangulate(poly))
+    return Mesh(vertices=vertices, faces=np.asarray(faces, np.int64).reshape(-1, 3))
+
+
+def _glb_accessor(js: dict, blob: bytes, idx: int) -> np.ndarray:
+    acc = js["accessors"][idx]
+    bv = js["bufferViews"][acc["bufferView"]]
+    comp = {5120: "i1", 5121: "u1", 5122: "i2", 5123: "u2",
+            5125: "u4", 5126: "f4"}[acc["componentType"]]
+    ncomp = {"SCALAR": 1, "VEC2": 2, "VEC3": 3, "VEC4": 4}[acc["type"]]
+    itemsize = np.dtype(comp).itemsize * ncomp
+    stride = bv.get("byteStride") or itemsize
+    start = bv.get("byteOffset", 0) + acc.get("byteOffset", 0)
+    count = acc["count"]
+    if stride == itemsize:
+        arr = np.frombuffer(blob, dtype="<" + comp, count=count * ncomp,
+                            offset=start)
+    else:  # interleaved attributes
+        raw = np.frombuffer(blob, np.uint8, offset=start,
+                            count=stride * (count - 1) + itemsize)
+        gather = (np.arange(count)[:, None] * stride
+                  + np.arange(itemsize)[None, :])
+        arr = raw[gather].copy().view("<" + comp)
+    return arr.reshape(count, ncomp)
+
+
+def _glb_node_matrix(node: dict) -> np.ndarray:
+    if "matrix" in node:
+        return np.asarray(node["matrix"], np.float64).reshape(4, 4).T  # column-major
+    m = np.eye(4)
+    if "scale" in node:
+        m[:3, :3] = np.diag(node["scale"])
+    if "rotation" in node:  # quaternion x, y, z, w
+        x, y, z, w = node["rotation"]
+        r = np.array([
+            [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+            [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+            [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+        ])
+        m[:3, :3] = r @ m[:3, :3]
+    if "translation" in node:
+        m[:3, 3] = node["translation"]
+    return m
+
+
+def load_glb(path: str) -> Mesh:
+    """Binary glTF 2.0: JSON + BIN chunks; all triangle primitives of
+    every scene node are concatenated with node TRS/matrix transforms
+    applied (the observable behavior of trimesh's Scene dump for the
+    single-object exports the reference pipeline consumes)."""
+    import json as _json
+
+    with open(path, "rb") as fh:
+        data = fh.read()
+    magic, _version, length = struct.unpack_from("<4sII", data, 0)
+    if magic != b"glTF":
+        raise ValueError(f"{path}: not a GLB file")
+    off, js, blob = 12, None, b""
+    while off + 8 <= min(length, len(data)):
+        clen, ctype = struct.unpack_from("<I4s", data, off)
+        off += 8
+        chunk = data[off: off + clen]
+        off += clen
+        if ctype == b"JSON":
+            js = _json.loads(chunk.decode("utf-8"))
+        elif ctype == b"BIN\x00":
+            blob = chunk
+    if js is None:
+        raise ValueError(f"{path}: GLB has no JSON chunk")
+
+    all_v, all_f, base = [], [], 0
+
+    def emit_mesh(mesh_idx: int, matrix: np.ndarray):
+        nonlocal base
+        for prim in js["meshes"][mesh_idx]["primitives"]:
+            if prim.get("mode", 4) != 4:  # triangles only
+                continue
+            pos = _glb_accessor(js, blob, prim["attributes"]["POSITION"]).astype(np.float64)
+            pos = pos @ matrix[:3, :3].T + matrix[:3, 3]
+            if "indices" in prim:
+                idx = _glb_accessor(js, blob, prim["indices"]).reshape(-1).astype(np.int64)
+            else:
+                idx = np.arange(len(pos), dtype=np.int64)
+            all_v.append(pos)
+            all_f.append(idx.reshape(-1, 3) + base)
+            base += len(pos)
+
+    def walk(node_idx: int, parent: np.ndarray):
+        node = js["nodes"][node_idx]
+        m = parent @ _glb_node_matrix(node)
+        if "mesh" in node:
+            emit_mesh(node["mesh"], m)
+        for child in node.get("children", []):
+            walk(child, m)
+
+    scenes = js.get("scenes")
+    if scenes:
+        scene = scenes[js.get("scene", 0)]
+        for root in scene.get("nodes", []):
+            walk(root, np.eye(4))
+    if not all_v:  # no scene graph: dump raw meshes
+        for i in range(len(js.get("meshes", []))):
+            emit_mesh(i, np.eye(4))
+    if not all_v:
+        raise ValueError(f"{path}: GLB contains no triangle primitives")
+    return Mesh(vertices=np.concatenate(all_v),
+                faces=np.concatenate(all_f).astype(np.int64))
+
+
+def detect_mesh_format(data: bytes) -> str:
+    """Sniff a mesh format from raw bytes -> extension ('obj', 'ply',
+    'stl', 'off', 'glb'). Used by serving for uploads that carry no
+    filename (the HTTP body is just bytes)."""
+    head = data[:512]
+    if head[:4] == b"glTF":
+        return "glb"
+    if head[:3] == b"ply":
+        return "ply"
+    stripped = head.lstrip()
+    first = stripped.split(None, 1)[0].upper() if stripped else b""
+    if first.endswith(b"OFF") and len(first) <= 6:
+        # OFF family incl. COFF/NOFF/STOFF — route to load_off, which
+        # refuses the variants with a clear message instead of letting
+        # the obj parser corrupt the data
+        return "off"
+    if stripped[:5].lower() == b"solid":
+        return "stl"
+    # binary STL: 80-byte header + uint32 count covering the file size
+    # (trailing padding tolerated, matching load_stl)
+    if len(data) >= 84 + 50:
+        (count,) = struct.unpack_from("<I", data, 80)
+        if count > 0 and len(data) >= 84 + 50 * count:
+            return "stl"
+    return "obj"
+
+
 def load_mesh(path: str) -> Mesh:
-    """Load a .obj or .ply mesh; any other suffix raises."""
+    """Load a mesh: .obj / .ply / .stl / .off / .glb — the formats
+    trimesh.load accepts in the reference driver (main.py:33)."""
     lower = path.lower()
     if lower.endswith(".obj"):
         return load_obj(path)
     if lower.endswith(".ply"):
         return load_ply(path)
+    if lower.endswith(".stl"):
+        return load_stl(path)
+    if lower.endswith(".off"):
+        return load_off(path)
+    if lower.endswith(".glb"):
+        return load_glb(path)
     raise ValueError(f"unsupported mesh format: {path}")
 
 

@@ -40,6 +40,7 @@ from meshanything_tpu_torch.models.layers import lin
 from meshanything_tpu_torch.models.shape_opt import (
     Cache,
     ShapeOPT,
+    check_prompt,
     embed_tokens,
     face_phase_ids,
     prefill_cache,
@@ -235,10 +236,14 @@ def init_lookahead_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Te
                          max_new_tokens: int, window: int = 8, bucket: int = 512,
                          attn: str = "pallas", sampling: bool = False, top_k: int = 50,
                          top_p: float = 0.95, generator: Optional[torch.Generator] = None,
-                         buf_window: Optional[int] = None) -> LookaheadState:
+                         buf_window: Optional[int] = None,
+                         prompt_ids: Optional[torch.Tensor] = None) -> LookaheadState:
     """Prefill and first token. ``buf_window`` (>= window, default the
     window) sizes the token buffer's scratch tail and the cache padding
-    for the widest window the state will be resized to."""
+    for the widest window the state will be resized to. With
+    ``prompt_ids`` (B, P) (JAX ``:447-533``) the prefill runs over
+    [condition || prompt], the prompt is echoed into the token buffer and
+    every row starts at step P + 1."""
     attn = resolve_attn(attn)
     check_attn(attn)
     bw = window if buf_window is None else buf_window
@@ -246,17 +251,23 @@ def init_lookahead_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Te
         raise ValueError(f"buf_window={bw} must be >= window={window}")
     b, c, _ = cond_embeds.shape
     dev = cond_embeds.device
-    logits0, kv = prefill_cache(p, cfg, cond_embeds, attn, c + max_new_tokens + bw, bucket)
+    p_len = check_prompt(prompt_ids, max_new_tokens)
+    if prompt_ids is not None:
+        prompt_ids = prompt_ids.to(device=dev, dtype=torch.int64)
+    logits0, kv = prefill_cache(p, cfg, cond_embeds, attn, c + max_new_tokens + bw, bucket,
+                                prompt_ids)
     first = (sample_token(logits0, sampling=True, top_k=top_k, top_p=top_p, generator=generator)
              if sampling else torch.argmax(logits0, dim=-1))
     tokens = torch.full((b, max_new_tokens + bw), cfg.eos_token_id, dtype=torch.int64, device=dev)
-    tokens[:, 0] = first
+    if p_len:
+        tokens[:, :p_len] = prompt_ids
+    tokens[:, p_len] = first
     win = torch.zeros((b, window), dtype=torch.int64, device=dev)
     win[:, 0] = first
-    return LookaheadState(steps=torch.ones(b, dtype=torch.int64, device=dev), tokens=tokens,
-                          kv=kv, done=first == cfg.eos_token_id, window=win, iters=0,
-                          iters_t=torch.zeros((), dtype=torch.int64, device=dev), attn=attn,
-                          generator=generator)
+    return LookaheadState(steps=torch.full((b,), p_len + 1, dtype=torch.int64, device=dev),
+                          tokens=tokens, kv=kv, done=first == cfg.eos_token_id, window=win,
+                          iters=0, iters_t=torch.zeros((), dtype=torch.int64, device=dev),
+                          attn=attn, generator=generator)
 
 
 def _read_counters(state: LookaheadState, max_new_tokens: int) -> tuple[int, bool]:
@@ -357,19 +368,24 @@ def generate_lookahead(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tens
                        attn: str = "pallas", wq: bool = False, sampling: bool = False,
                        top_k: int = 50, top_p: float = 0.95,
                        generator: Optional[torch.Generator] = None,
-                       return_stats: bool = False):
+                       return_stats: bool = False,
+                       prompt_ids: Optional[torch.Tensor] = None):
     """Generation with lookahead -> (B, max_new_tokens) int64; with
     ``return_stats`` also {"iterations": window forwards, "emitted":
-    (B,) tokens per row}. Greedy output is the step-by-step greedy
-    stream. ``wq`` quantizes the layer matrices for the window forwards
-    (the prefill runs on the originals)."""
+    (B,) tokens per row past the prompt}. Greedy output is the
+    step-by-step greedy stream. ``wq`` quantizes the layer matrices for
+    the window forwards (the prefill runs on the originals).
+    ``prompt_ids`` (B, P): continue from a token prefix (see
+    ``shape_opt.generate``), echoed at the front of the output."""
     state = init_lookahead_state(p, cfg, cond_embeds, max_new_tokens=max_new_tokens,
                                  window=window, bucket=bucket, attn=attn, sampling=sampling,
-                                 top_k=top_k, top_p=top_p, generator=generator)
+                                 top_k=top_k, top_p=top_p, generator=generator,
+                                 prompt_ids=prompt_ids)
     state = lookahead_segment(p, cfg, state, max_new_tokens=max_new_tokens,
                               wq_layers=quantize_opt_layers(p.layers) if wq else None,
                               sampling=sampling, top_k=top_k, top_p=top_p)
     tokens = state.tokens[:, :max_new_tokens]
     if return_stats:
-        return tokens, {"iterations": state.iters, "emitted": state.steps}
+        p_len = 0 if prompt_ids is None else prompt_ids.shape[1]
+        return tokens, {"iterations": state.iters, "emitted": state.steps - p_len}
     return tokens

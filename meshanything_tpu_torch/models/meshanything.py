@@ -43,11 +43,13 @@ def process_point_feature(m: MeshAnything, cfg: MeshAnythingConfig,
 
 def get_codes(m: MeshAnything, cfg: MeshAnythingConfig, indices: torch.Tensor) -> torch.Tensor:
     """Codebook gather + residual-quantizer sum (meshanything.py:178-212):
-    (B, T) ids with pad -1 -> (B, T/3, codebook_dim)."""
+    (B, T) ids with pad -1 -> (B, T/3, codebook_dim). An id past the
+    codebook takes its last row, as JAX's gather clamps (a completion
+    prompt's coordinate ids reach 127, past a small test codebook)."""
     b, t = indices.shape
     idx = indices.reshape(b, t // cfg.num_quantizers, cfg.num_quantizers)
     mask = idx == -1
-    codes = m.opt.codebook[idx.masked_fill(mask, 0)]
+    codes = m.opt.codebook[idx.masked_fill(mask, 0).clamp_max(cfg.opt.codebook_size - 1)]
     return codes.masked_fill(mask[..., None], 0.0).sum(dim=2)
 
 
@@ -61,6 +63,9 @@ def token_postprocess(cfg: MeshAnythingConfig, raw_tokens: torch.Tensor) -> torc
 class GenerateOutput(NamedTuple):
     face_coords: torch.Tensor   # (B, n_max_triangles, 3, 3) f32, NaN padding
     token_ids: torch.Tensor     # (B, generate_length) raw generated stream
+    # what a run reports beside its output (``runtime/phases.py::PhaseRunner``:
+    # decode steps, seconds by phase, capture_s; the batcher adds the batch)
+    stats: Optional[dict] = None
 
 
 def encode(m: MeshAnything, cfg: MeshAnythingConfig, pc_normal: torch.Tensor):
@@ -81,18 +86,63 @@ def detokenize(m: MeshAnything, cfg: MeshAnythingConfig, raw_tokens: torch.Tenso
 def generate(m: MeshAnything, cfg: MeshAnythingConfig, pc_normal: torch.Tensor, *,
              sampling: bool = False, generator: Optional[torch.Generator] = None,
              bucket: int = 512, attn: str = "pallas", lookahead: int = 0,
-             wq: bool = False) -> GenerateOutput:
+             wq: bool = False, prompt_ids: Optional[torch.Tensor] = None) -> GenerateOutput:
     """Full inference pass (meshanything.py:134-176) on (B, N, 6)
     normalized points+normals. ``lookahead`` > 0 decodes with Jacobi
     windows of that width (``models/lookahead.py``; with ``sampling``,
     speculative sampling); ``attn`` picks the cache tier, or "megakernel"
     for one K5 launch a step (single-token loop only), and ``wq`` the
-    int8 layer matrices (``models/shape_opt.py``)."""
+    int8 layer matrices (``models/shape_opt.py``). ``prompt_ids`` (B, P)
+    continues a token prefix (``complete``)."""
     point_feature, cond = encode(m, cfg, pc_normal)
     kw = dict(max_new_tokens=cfg.generate_length, sampling=sampling, generator=generator,
-              bucket=bucket, attn=attn, wq=wq)
+              bucket=bucket, attn=attn, wq=wq, prompt_ids=prompt_ids)
     if lookahead > 0:
         raw = la_mod.generate_lookahead(m.opt, cfg.opt, cond, window=lookahead, **kw)
     else:
         raw = opt_mod.generate(m.opt, cfg.opt, cond, **kw)
     return GenerateOutput(detokenize(m, cfg, raw, point_feature), raw)
+
+
+def discretize_faces(cfg: MeshAnythingConfig, face_coords) -> torch.Tensor:
+    """Inverse of the NRD undiscretize (meshanything.py:214-223): clamp
+    [-0.5, 0.5) coords onto the discrete grid and add the +3 special
+    offset -> (B, nf*9) stream-order token ids, int64. The arithmetic is
+    f32, as in the JAX package (its arrays are f32 whatever the input)."""
+    bins = cfg.nrd.discrete_num
+    coords = torch.as_tensor(face_coords, dtype=torch.float32)
+    disc = torch.clamp(torch.floor((coords + 0.5) * bins), 0, bins - 1)
+    return disc.to(torch.int64).reshape(coords.shape[0], -1) + 3
+
+
+def build_face_prompt(cfg: MeshAnythingConfig, face_coords) -> torch.Tensor:
+    """The prompt of mesh completion, shared by ``complete``, the CLI and
+    serving: [bos || discretize_faces] in stream order, (B, 1 + nf*9)
+    int64. ``face_coords`` (B, nf, 3, 3). A partial mesh that leaves the
+    decoder no room to continue raises ValueError up front."""
+    coords = torch.as_tensor(face_coords)
+    nf = coords.shape[1]
+    max_nf = (cfg.generate_length - 2) // cfg.opt.face_per_token
+    if nf >= max_nf:
+        raise ValueError(
+            f"partial mesh has {nf} faces; completion needs room to "
+            f"continue — at n_max_triangles={cfg.n_max_triangles} the "
+            f"prompt may carry at most {max_nf - 1} faces")
+    toks = discretize_faces(cfg, coords)
+    bos = torch.full((coords.shape[0], 1), cfg.opt.bos_token_id, dtype=torch.int64)
+    return torch.cat([bos, toks], dim=1)
+
+
+def complete(m: MeshAnything, cfg: MeshAnythingConfig, pc_normal: torch.Tensor,
+             partial_faces, *, sampling: bool = False,
+             generator: Optional[torch.Generator] = None, bucket: int = 512,
+             attn: str = "pallas", lookahead: int = 0, wq: bool = False) -> GenerateOutput:
+    """Mesh completion (JAX ``meshanything.py:164``): continue the
+    generation from a partial face list conditioned on the whole shape's
+    point cloud. ``partial_faces`` (B, nf, 3, 3) in [-0.5, 0.5) are
+    discretized onto the token grid, prefilled as [bos || face tokens] in
+    one causal pass, and decoded on from there; the prompt faces come
+    back at the front of the output stream."""
+    prompt = build_face_prompt(cfg, partial_faces).to(pc_normal.device)
+    return generate(m, cfg, pc_normal, sampling=sampling, generator=generator, bucket=bucket,
+                    attn=attn, lookahead=lookahead, wq=wq, prompt_ids=prompt)

@@ -169,27 +169,87 @@ def resolve_attn(attn: str) -> str:
     return attn
 
 
+def prefill_with_prompt(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor,
+                        token_ids: torch.Tensor, kv_cache: torch.Tensor) -> torch.Tensor:
+    """Causal pass over [condition || prompt tokens] (JAX
+    ``prefill_with_prompt``, the prefill of mesh completion): writes rows
+    [0, C + P) of every layer of ``kv_cache`` in place and returns the
+    last position's logits (B, vocab) in f32.
+
+    ``token_ids`` (B, P) is in stream order: element 0 is the bos slot,
+    as ``generate`` emits it. The embedding is the decode step's (face
+    phase of the token's generated index, cond_embed[1], absolute
+    position C + index), so decoding from this cache gives the stream of
+    a generation whose first P steps had emitted the prompt. Up to 1,024
+    rows the attention is the dense one of ``prefill``; past that
+    ``scaled_dot_product_attention`` (JAX switches to its blockwise
+    attention there: the dense f32 scores of a long completion prompt
+    would take gigabytes a layer)."""
+    b, c, d = cond_embeds.shape
+    t = token_ids.shape[1]
+    h, hd = cfg.num_heads, cfg.head_dim
+    dtype = cond_embeds.dtype
+    cond_x = cond_embeds + p.cond_embed[0].to(dtype)
+    gen_index = torch.arange(t, device=token_ids.device)[None, :]
+    tok = embed_tokens(p, cfg, token_ids).to(dtype)
+    tok = tok + p.face_positions[face_phase_ids(token_ids, gen_index, cfg.face_per_token)].to(dtype)
+    tok = tok + p.cond_embed[1].to(dtype)
+    x = torch.cat([cond_x, tok], dim=1)
+    n = c + t
+    x = x + p.embed_positions[cfg.pos_offset:cfg.pos_offset + n].to(dtype)
+    for layer_idx, layer in enumerate(p.layers):
+        q, k, v = lin(x, layer.qkv).chunk(3, dim=-1)
+        kv_cache[0, layer_idx, :, :n] = k
+        kv_cache[1, layer_idx, :, :n] = v
+        q, k, v = (y.reshape(b, n, h, hd) for y in (q, k, v))
+        if n > 1024:
+            o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                               v.transpose(1, 2), is_causal=True).transpose(1, 2)
+        else:
+            o = attention(q, k, v, causal=True)
+        x = layer.after_attention(x, o.reshape(b, n, d))
+    return lin(x[:, -1], p.lm_head).float()
+
+
 def prefill_cache(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, attn: str,
-                  seq: int, bucket: int) -> Tuple[torch.Tensor, Cache]:
+                  seq: int, bucket: int,
+                  prompt_ids: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
     """Allocate the decode cache for ``seq`` rows (padded to ``bucket``)
-    and prefill it -> (first logits (B, vocab) f32, cache). Quantized
-    tiers prefill a compact condition-length tensor and quantize it into
-    rows [0, C) of the preallocated caches."""
+    and prefill it with the condition and, when given, the prompt ->
+    (first logits (B, vocab) f32, cache). Quantized tiers prefill a
+    compact (C + P)-row tensor and quantize it into rows [0, C + P) of the
+    preallocated caches."""
     b, c, _ = cond_embeds.shape
+    n = c + (0 if prompt_ids is None else prompt_ids.shape[1])
     n_layers, hd = cfg.num_layers, cfg.hidden_size
+
+    def run_prefill(kv):
+        if prompt_ids is None:
+            return prefill(p, cfg, cond_embeds, kv)
+        return prefill_with_prompt(p, cfg, cond_embeds, prompt_ids, kv)
+
     if attn not in QUANTIZED:
         kv = alloc_kv_cache(n_layers, b, seq, cfg.num_heads, cfg.head_dim,
                             dtype=cond_embeds.dtype, chunk=bucket, device=cond_embeds.device)
-        return prefill(p, cfg, cond_embeds, kv), kv
-    compact = torch.empty((2, n_layers, b, c, hd), dtype=cond_embeds.dtype,
+        return run_prefill(kv), kv
+    compact = torch.empty((2, n_layers, b, n, hd), dtype=cond_embeds.dtype,
                           device=cond_embeds.device)
-    logits0 = prefill(p, cfg, cond_embeds, compact)
+    logits0 = run_prefill(compact)
     values, scales = alloc_quantized_cache(attn, n_layers, b, seq, hd, chunk=bucket,
                                            device=cond_embeds.device)
     codes, row_scales = quantize_rows_for(attn)(compact)
-    values[:, :, :, :c] = codes
-    scales[:, :, :, 0, :c] = row_scales[..., 0]
+    values[:, :, :, :n] = codes
+    scales[:, :, :, 0, :n] = row_scales[..., 0]
     return logits0, (values, scales)
+
+
+def check_prompt(prompt_ids: Optional[torch.Tensor], max_new_tokens: int) -> int:
+    """The prompt's length (0 without one); raises where it leaves no
+    token to generate."""
+    p_len = 0 if prompt_ids is None else prompt_ids.shape[1]
+    if p_len >= max_new_tokens:
+        raise ValueError(f"prompt length {p_len} must be < max_new_tokens={max_new_tokens}")
+    return p_len
 
 
 @dataclasses.dataclass
@@ -213,18 +273,29 @@ def init_decode_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tenso
                       max_new_tokens: int, sampling: bool = False, top_k: int = 50,
                       top_p: float = 0.95, temperature: float = 1.0, bucket: int = 512,
                       generator: Optional[torch.Generator] = None,
-                      attn: str = "pallas") -> DecodeState:
+                      attn: str = "pallas",
+                      prompt_ids: Optional[torch.Tensor] = None) -> DecodeState:
     """Allocate the cache (S padded to ``bucket``), prefill it, and take
-    the first token."""
+    the first token. With ``prompt_ids`` (B, P) (JAX ``:499-570``) the
+    prefill runs over [condition || prompt], the prompt is echoed into
+    the token buffer, the first token goes to slot P and the decode goes
+    on from step P + 1 (its cache row C + P)."""
     attn = resolve_attn(attn)
     b, c, _ = cond_embeds.shape
-    logits0, kv = prefill_cache(p, cfg, cond_embeds, attn, c + max_new_tokens, bucket)
+    p_len = check_prompt(prompt_ids, max_new_tokens)
+    if prompt_ids is not None:
+        prompt_ids = prompt_ids.to(device=cond_embeds.device, dtype=torch.int64)
+    logits0, kv = prefill_cache(p, cfg, cond_embeds, attn, c + max_new_tokens, bucket,
+                                prompt_ids)
     first = sample_token(logits0, sampling=sampling, top_k=top_k, top_p=top_p,
                          temperature=temperature, generator=generator)
     tokens = torch.full((b, max_new_tokens), cfg.eos_token_id, dtype=torch.int64,
                         device=cond_embeds.device)
-    tokens[:, 0] = first
-    return DecodeState(step=1, step_t=torch.ones((), dtype=torch.int64, device=tokens.device),
+    if p_len:
+        tokens[:, :p_len] = prompt_ids
+    tokens[:, p_len] = first
+    return DecodeState(step=p_len + 1,
+                       step_t=torch.full((), p_len + 1, dtype=torch.int64, device=tokens.device),
                        tokens=tokens, kv=kv, done=first == cfg.eos_token_id, last_token=first,
                        generator=generator, attn=attn)
 
@@ -400,12 +471,16 @@ def generate(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, *,
              max_new_tokens: int, sampling: bool = False, top_k: int = 50,
              top_p: float = 0.95, temperature: float = 1.0, bucket: int = 512,
              generator: Optional[torch.Generator] = None, attn: str = "pallas",
-             wq: bool = False) -> torch.Tensor:
+             wq: bool = False, prompt_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Autoregressive generation -> (B, max_new_tokens) int64, eos-filled
     past the stop point. Attention is K1, K2 or K3 on every step, or the
     whole layer stack is K5 (see the module docstring for ``attn`` and
-    ``wq``)."""
+    ``wq``). ``prompt_ids`` (B, P): continue from a token prefix in
+    stream order (element 0 the bos slot), prefilled in one causal pass
+    (``prefill_with_prompt``) and echoed at the front of the output: mesh
+    completion (``models/meshanything.py::complete``)."""
     kw = dict(sampling=sampling, top_k=top_k, top_p=top_p, temperature=temperature)
     state = init_decode_state(p, cfg, cond_embeds, max_new_tokens=max_new_tokens,
-                              bucket=bucket, generator=generator, attn=attn, **kw)
+                              bucket=bucket, generator=generator, attn=attn,
+                              prompt_ids=prompt_ids, **kw)
     return decode_loop(p, cfg, state, max_new_tokens=max_new_tokens, wq=wq, **kw).tokens

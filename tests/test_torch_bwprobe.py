@@ -242,13 +242,11 @@ def test_pipeline_checks_the_budget_on_the_card(bridged, monkeypatch):
         pytest.skip("needs a CUDA card: the budget is held against the card's memory")
     import copy
 
-    from meshanything_tpu_torch.runtime import pipeline
-
     cfg, _, model = bridged
     pipe = InferencePipeline(copy.deepcopy(model).cuda(), cfg, batch_size=1, bucket=16)
     pc = torch.randn(1, cfg.perceiver.num_points, 6, device="cuda")
     assert pipe.generate(pc)["coords"].shape[0] == 1
-    monkeypatch.setattr(pipeline, "check_memory_budget",
+    monkeypatch.setattr(phases, "check_memory_budget",
                         lambda *a, **k: (_ for _ in ()).throw(ValueError("over budget")))
     with pytest.raises(ValueError, match="over budget"):
         pipe.generate(pc)

@@ -104,3 +104,50 @@ def test_a_retry_that_succeeds_gives_the_normal_records(pipelines, tmp_path, mon
     assert [r["faces_generated"] for r in got] == [r["faces_generated"] for r in clean]
     for a, b in zip(got, clean):
         assert open(a["obj_path"], "rb").read() == open(b["obj_path"], "rb").read()
+
+
+@pytest.mark.parametrize("kind", ["mc", "complete_from"])
+def test_mc_and_complete_from_write_the_jax_clis_obj_bytes(tmp_path, monkeypatch, kind):
+    """``--mc`` (a mesh input watertighted through the distance field and
+    marching tetrahedra) and ``--complete_from`` (a partial mesh's faces
+    seeding the decoder) through the port's CLI and through the JAX CLI,
+    both with ``--attn pallas``, on the same bridged weights: the same OBJ
+    bytes. The JAX CLI's persistent compile cache is left off."""
+    import meshanything_tpu.cli as jax_cli
+    import meshanything_tpu.runtime.compile_cache as jax_compile_cache
+    from meshanything_tpu_torch.geometry import Mesh, save_obj
+
+    jcfg, cfg = jax_small_config(n_max_triangles=4), small_test_config(n_max_triangles=4)
+    params = jma.init_meshanything_params(jax.random.PRNGKey(42), jcfg)
+    tree = jax.tree_util.tree_map(np.array, params)
+    if kind == "mc":
+        path = str(tmp_path / "tet.obj")
+        save_obj(Mesh(np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], float),
+                      np.array([[0, 2, 1], [0, 1, 3], [1, 2, 3], [0, 3, 2]])), path)
+        flags = ["--input_type", "mesh", "--input_path", path, "--mc"]
+    else:
+        rng = np.random.default_rng(8)
+        pc = rng.normal(size=(200, 6)) * 0.3
+        pc[:, 3:] /= np.linalg.norm(pc[:, 3:], axis=-1, keepdims=True)
+        path = str(tmp_path / "mouse.npy")
+        np.save(path, pc.astype(np.float32))
+        partial = str(tmp_path / "partial.obj")
+        save_obj(Mesh(rng.uniform(-0.45, 0.45, size=(5, 3)),
+                      np.array([[0, 1, 2], [2, 3, 4]])), partial)
+        flags = ["--input_type", "pc_normal", "--input_path", path, "--complete_from", partial]
+    common = ["--random_weights", "--dtype", "float32", "--bucket", "16", "--seed", "0",
+              "--attn", "pallas", *flags]
+
+    monkeypatch.setattr(jax_compile_cache, "enable", lambda *a, **k: None)
+    monkeypatch.setattr(jax_cli, "build_config", lambda args: jcfg)
+    monkeypatch.setattr(jax_cli, "load_params", lambda args, cfg_: params)
+    jres = jax_cli.main(["--out_dir", str(tmp_path / "jax"), *common])
+    monkeypatch.setattr(cli, "build_config", lambda args: cfg)
+    monkeypatch.setattr(cli, "load_params",
+                        lambda args, cfg_, device: params_from_jax_numpy(tree, cfg_, device=device))
+    res = cli.main(["--out_dir", str(tmp_path / "port"), "--device", "cpu", *common])
+    assert len(res) == len(jres) == 1 and "error" not in res[0]
+    assert res[0]["faces_generated"] == jres[0]["faces_generated"] > 0
+    assert open(res[0]["obj_path"], "rb").read() == open(jres[0]["obj_path"], "rb").read()
+    if kind == "complete_from":
+        assert res[0]["decode_steps"] == cfg.generate_length - 1 - (1 + 2 * 9)

@@ -61,7 +61,7 @@ def test_obj_and_ply_io_match_jax(tmp_path):
         np.testing.assert_array_equal(mine.vertices, ref.vertices)
         np.testing.assert_array_equal(mine.faces, ref.faces)
     with pytest.raises(ValueError, match="unsupported mesh format"):
-        geo.load_mesh(str(tmp_path / "cube.stl"))
+        geo.load_mesh(str(tmp_path / "cube.xyz"))
 
 
 def test_sampling_and_normalization_match_jax():
@@ -140,10 +140,11 @@ def test_cli_writes_the_jax_pipelines_obj_bytes(tmp_path, monkeypatch):
     assert open(res[0]["obj_path"], "rb").read() == open(jres[0]["obj_path"], "rb").read()
 
 
-@pytest.mark.parametrize("flags", [["--mc"], ["--pretrained_weights", "w.pth"],
+@pytest.mark.parametrize("flags", [["--mc", "--pretrained_weights", "w.pth"],
+                                   ["--pretrained_weights", "w.pth"],
                                    ["--attn", "xla"],
                                    ["--fast", "--attn", "xla"],
-                                   ["--complete_from", "p.obj"], []])
+                                   ["--complete_from", "p.obj", "--attn", "xla"], []])
 def test_cli_refuses_what_is_not_ported(flags):
     args = cli.get_args(["--input_path", "x.npy", "--input_type", "pc_normal", *flags]
                         + ([] if flags == [] else ["--random_weights"]))
