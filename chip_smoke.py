@@ -127,9 +127,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
      concurrent requests; K1's and the int8 K4's launches and graph
      replays, and no other kernel's, counted per engine; then the CLI
      with --mc (B=2) and with --complete_from through phase 8's checks.
+  12. train (``train_phase``): the trainer at the full 350M width on the
+     face-grammar recipe (batch 4, lr 1e-3, k=5, one fixed batch): 100
+     steps of run_training with the loss falling below half its first
+     value, ms a step, positions a second, peak bytes and model FLOPs a
+     second; the final checkpoint restored bit-equal, and the step-80
+     checkpoint resumed to 100 bit-equal to the uninterrupted run; one step at
+     7,459 positions (B=1, remat, SDPA); the trained weights in bf16
+     through full_scale_probe (K1 and the bf16 K4, which must launch and
+     whose graphs must replay, each counted apart, and no other kernel):
+     acceptance, agreement, seconds.
 
 Before the last line it prints {"kernels": [...]} (K1-K5 and T1-T5, each
-with its launches on the main and serving paths, its time, its plain
+with its launches on the main and serving paths and the train phase's decode, its time, its plain
 version's, its byte or operation bound, its share of the measured roof
 and the library call's time where there is one) and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
@@ -185,7 +195,8 @@ K5_CHECKS = ((1, CUR_LENS), (2, CUR_LENS), (16, CUR_LENS), (4, (4000,)), (24, (7
 K5_TOL = {"float32": 6e-2, "bfloat16": 6e-2}
 K5_ONE_LAYER_TOL = {"float32": 2e-3, "bfloat16": 1e-2}
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA's data sheet
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}  # dense
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12,  # dense
+                  "tf32": 495e12}
 
 
 def bound(moved_bytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -2097,9 +2108,262 @@ def serving_phase(torch, wrappers: dict, cli, load_obj, card: str) -> tuple:
     return runs, serving_launches
 
 
+TRAIN_FACES = 100         # the grammar recipe's n_max_triangles: 1,159 positions a row
+TRAIN_STEPS = 100
+TRAIN_RESUME_AT = 80      # the checkpoint the resumed trainer starts from
+TRAIN_BATCH, TRAIN_LR, TRAIN_K = 4, 1e-3, 5
+FULL_FACES = 800          # the full-length step: 7,459 positions, B=1
+
+
+def _train_tensors(state) -> dict:
+    """Every tensor of a TrainState by name: parameters and both moments."""
+    out = {f"params/{n}": p.detach() for n, p in state.model.named_parameters()}
+    out.update({f"mu/{n}": t for n, t in state.opt_state.mu.items()})
+    out.update({f"nu/{n}": t for n, t in state.opt_state.nu.items()})
+    return out
+
+
+def _state_diff(torch, a, b) -> tuple:
+    """(every tensor, the count and the step equal bit for bit, the largest
+    |a - b| of any tensor, the largest of it relative to that tensor's
+    largest |a|)."""
+    ta, tb = _train_tensors(a), _train_tensors(b)
+    if set(ta) != set(tb):
+        raise AssertionError(f"train: the states hold other tensors: {sorted(set(ta) ^ set(tb))}")
+    equal = (a.step, a.opt_state.count) == (b.step, b.opt_state.count)
+    worst = worst_rel = 0.0
+    for name, x in ta.items():
+        y = tb[name]
+        equal = equal and bool(torch.equal(x, y))
+        d = float((x - y).abs().max())
+        worst = max(worst, d)
+        worst_rel = max(worst_rel, d / max(float(x.abs().max()), 1e-30))
+    return equal, worst, worst_rel
+
+
+def train_phase(torch, wrappers: dict, card: str) -> dict:
+    """Phase 12: the trainer at the full 350M width (f32 master weights, the
+    bf16 perceiver, the decoder in f32 as JAX runs it) on the face-grammar
+    recipe of JAX's ``full_scale_probe`` (batch 4, lr 1e-3, k=5, one fixed
+    batch, mask_padding, 1,159 positions a row), through the entry points
+    a user calls:
+
+    1. ``run_training`` for TRAIN_STEPS steps with a checkpoint at
+       TRAIN_RESUME_AT and at the end: the loss finite at every step and
+       the last below half the first; ms a step (host clock over steps
+       10..TRAIN_RESUME_AT, the card synchronised at both ends), positions
+       a second, peak allocated bytes (and the bytes allocated before the
+       run, which earlier phases hold), and model FLOPs a second (3 x the
+       forward's matmul FLOPs, counted by ``FlopCounterMode``: backward is
+       twice the forward, remat's recomputed forward is not model work)
+       against the card's dense bf16 and TF32 peaks (the step's f32
+       matmuls run as TF32: ``train.tf32_on_card``);
+    2. the final checkpoint restored into a trainer built from other
+       weights: every parameter, both moments, the count and the step
+       bit-equal to the live state; then the step-TRAIN_RESUME_AT
+       checkpoint resumed by ``run_training(resume=True)`` to TRAIN_STEPS:
+       bit-equal to the uninterrupted run (one stream, the same kernels:
+       the card's backward is deterministic here, PERF.md);
+    3. one ``make_train_step`` step (and a second, timed apart) at
+       n_max_triangles=800, 7,459 positions, B=1, remat and SDPA: the
+       loss finite, ms and peak bytes;
+    4. the trained weights written as the probe's npz cache and decoded by
+       ``full_scale_probe`` (bf16, K1 and the bf16 K4, bucket 512, graph
+       replays) on the training and held-out conditions: acceptance,
+       agreement, plain tokens, plain-greedy and lookahead-8 seconds. The
+       counts are set to 0 just before and read just after: K1 and the
+       bf16 tensor-core K4 must have launched (at the graphs' warm-ups and
+       captures), and no other kernel; plain greedy's graphs (K1) and
+       lookahead's (K4) must both have replayed, their replays counted
+       apart around each call.
+
+    Returns the decode's launches for the ``kernels`` line."""
+    import shutil
+
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from meshanything_tpu_torch.config import MeshAnythingConfig
+    from meshanything_tpu_torch.models import meshanything as ma
+    from meshanything_tpu_torch.runtime.checkpoint import init_random_params, jax_numpy_from_params
+    from meshanything_tpu_torch.runtime.decode_graph import StepGraph
+    from meshanything_tpu_torch.training import synthetic_grammar as sg
+    from meshanything_tpu_torch.training import train as tr
+    from meshanything_tpu_torch.training.optim import make_optimizer
+
+    dev = torch.device("cuda")
+    cfg = MeshAnythingConfig(n_max_triangles=TRAIN_FACES)
+    fixed = sg.make_grammar_batch(cfg, np.random.default_rng(0), TRAIN_BATCH, k=TRAIN_K,
+                                  mask_padding=True)
+    positions = TRAIN_BATCH * (cfg.cond_length + cfg.generate_length)
+    failures = []
+
+    def batches():
+        while True:
+            yield fixed
+
+    def recipe():
+        return make_optimizer(TRAIN_LR, steps=TRAIN_STEPS)
+
+    with torch.enable_grad(), tempfile.TemporaryDirectory() as tmp:
+        # 1. train
+        losses, marks = {}, {}
+
+        def on_metrics(n, metrics):
+            losses[n] = metrics["loss"]
+            if n in (10, TRAIN_RESUME_AT):
+                torch.cuda.synchronize()
+                marks[n] = time.perf_counter()
+
+        torch.cuda.synchronize()
+        # what earlier phases still hold counts into the peak: print it apart
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        live = tr.run_training(cfg, batches(), steps=TRAIN_STEPS, device=dev, seed=0,
+                               optimizer=recipe(), ckpt_dir=os.path.join(tmp, "a"),
+                               save_every=TRAIN_RESUME_AT, log_every=0, on_metrics=on_metrics)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        curve = [float(losses[n]) for n in sorted(losses)]
+        step_s = (marks[TRAIN_RESUME_AT] - marks[10]) / (TRAIN_RESUME_AT - 10)
+        # with grad (the counter's module hooks need it) and remat (only the
+        # layer boundaries kept): the graph is dropped uncalled
+        with FlopCounterMode(display=False) as counter:
+            pc, ids, _ = (torch.as_tensor(a, device=dev) for a in fixed)
+            ma.forward_logits(live.model, cfg, pc, ids.long(), remat=True)
+        fwd_flops = counter.get_total_flops()
+        model_flops = 3 * fwd_flops
+        if not (all(np.isfinite(curve)) and curve[-1] < 0.5 * curve[0]):
+            failures.append("the loss did not fall below half of the first step's")
+        emit("train", part="train", card=card, faces=TRAIN_FACES, batch=TRAIN_BATCH,
+             lr=TRAIN_LR, k=TRAIN_K, steps=TRAIN_STEPS, positions_per_step=positions,
+             loss_first=curve[0], loss_last=curve[-1],
+             loss_every_10=curve[9::10], run_s=run_s, ms_per_step=step_s * 1e3,
+             positions_per_s=positions / step_s, peak_allocated_bytes=peak,
+             allocated_before_bytes=held,
+             forward_matmul_flops=fwd_flops,
+             model_flops_per_step=model_flops,
+             model_flops_formula="3 x forward matmul FLOPs (FlopCounterMode over "
+                                 "forward_logits at the training batch)",
+             model_flops_per_s=model_flops / step_s,
+             share_of_bf16_peak=model_flops / step_s / PEAK_OPS_PER_S["bfloat16"],
+             share_of_tf32_peak=model_flops / step_s / PEAK_OPS_PER_S["tf32"])
+
+        # 2. save and resume
+        template, _ = tr.make_train_step(
+            cfg, init_random_params(cfg, torch.Generator(dev).manual_seed(1), torch.float32),
+            recipe())
+        restored = tr.restore_train_state(os.path.join(tmp, "a", f"step_{TRAIN_STEPS}"),
+                                          template)
+        restored_equal, _, _ = _state_diff(torch, live, restored)
+        del template, restored
+        shutil.copytree(os.path.join(tmp, "a", f"step_{TRAIN_RESUME_AT}"),
+                        os.path.join(tmp, "b", f"step_{TRAIN_RESUME_AT}"))
+        t0 = time.perf_counter()
+        resumed = tr.run_training(cfg, batches(), steps=TRAIN_STEPS, device=dev, seed=1,
+                                  optimizer=recipe(), ckpt_dir=os.path.join(tmp, "b"),
+                                  resume=True, log_every=0)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        cont_equal, cont_abs, cont_rel = _state_diff(torch, live, resumed)
+        if not restored_equal:
+            failures.append("the restored state differs from the saved one")
+        if not cont_equal:
+            failures.append(f"the resumed run is {cont_rel} off the uninterrupted one")
+        emit("train", part="resume", card=card, restored_bit_equal=restored_equal,
+             resumed_from=TRAIN_RESUME_AT, resumed_to=resumed.step, resume_run_s=resume_s,
+             continuation_bit_equal=cont_equal, continuation_max_abs_diff=cont_abs,
+             continuation_max_rel_diff=cont_rel)
+
+        # 3. one full-length step, on the resumed trainer's weights
+        cfg800 = MeshAnythingConfig(n_max_triangles=FULL_FACES)
+        model = resumed.model
+        del resumed
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()     # the model itself included
+        torch.cuda.reset_peak_memory_stats()
+        state, step_fn = tr.make_train_step(cfg800, model, recipe(), remat=True, block_q=512)
+        batch = tr.make_batch(cfg800, np.random.default_rng(0), 1, cfg800.generate_length)
+        full = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, *batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            full.append(((time.perf_counter() - t0) * 1e3, loss))
+        if not all(np.isfinite(l) for _, l in full):
+            failures.append("the full-length step's loss is not finite")
+        emit("train", part="full_length", card=card, faces=FULL_FACES, batch=1,
+             positions=cfg800.cond_length + cfg800.generate_length, remat=True,
+             attention="scaled_dot_product_attention", ms=[m for m, _ in full],
+             loss=[l for _, l in full], peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+             allocated_before_bytes=held)
+        del state, step_fn, model
+        torch.cuda.empty_cache()
+
+        # 4. decode the trained weights through the probe, from its cache
+        cache = os.path.join(tmp, "grammar350m.npz")
+        np.savez(cache, **sg._flatten_tree(jax_numpy_from_params(live.model)))
+        del live
+        torch.cuda.empty_cache()
+        before = os.environ.get("GRAMMAR_PROBE_CACHE")
+        os.environ["GRAMMAR_PROBE_CACHE"] = cache
+        # the graph replays of each decode apart: plain greedy's graphs hold K1,
+        # lookahead's the bf16 K4 (the calls run one after another on the host)
+        replays = {"k1": 0, "k4_window": 0}
+        plain_generate, lookahead_generate = sg.sopt.generate, sg.generate_lookahead
+
+        def counting(fn, key):
+            def call(*args, **kwargs):
+                start = StepGraph.replays
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    replays[key] += StepGraph.replays - start
+            return call
+
+        _zero_counts(wrappers)
+        sg.sopt.generate = counting(plain_generate, "k1")
+        sg.generate_lookahead = counting(lookahead_generate, "k4_window")
+        try:
+            with torch.no_grad():
+                stats, t_plain, t_look = sg.full_scale_probe(
+                    steps=TRAIN_STEPS, batch=TRAIN_BATCH, n_max_triangles=TRAIN_FACES,
+                    lr=TRAIN_LR, window=8, seed=0, device=dev)
+        finally:
+            sg.sopt.generate, sg.generate_lookahead = plain_generate, lookahead_generate
+            if before is None:
+                os.environ.pop("GRAMMAR_PROBE_CACHE")
+            else:
+                os.environ["GRAMMAR_PROBE_CACHE"] = before
+        counts = _serving_counts(wrappers)
+    L = cfg.opt.num_layers
+    others = {k: n for k, n in counts.items()
+              if k not in ("k1", "k4", "k4_window", "graph_captures", "graph_replays") and n}
+    if not (counts["k1"] and counts["k4_window"] and replays["k1"] and replays["k4_window"]):
+        failures.append(f"the decode did not launch K1 and the bf16 K4 and replay both: "
+                        f"{counts}, replays {replays}")
+    if sum(replays.values()) != counts["graph_replays"]:
+        failures.append(f"of {counts['graph_replays']} replays the decodes made {replays}")
+    if others or counts["k4"] != counts["k4_window"]:
+        failures.append(f"the decode launched other kernels: {others}, k4 {counts['k4']}")
+    emit("train", part="decode", card=card, window=8, bucket=512, stats=stats,
+         plain_greedy_s=t_plain, lookahead_8_s=t_look, launches=counts,
+         graph_replays_plain=replays["k1"], graph_replays_lookahead=replays["k4_window"])
+    if failures:
+        raise AssertionError(f"train: {failures}")
+    # each replay is one decode step or window forward: one launch a layer
+    return {"k1": counts["k1"], "k4_window": counts["k4_window"],
+            "k1_replayed": L * replays["k1"], "k4_window_replayed": L * replays["k4_window"]}
+
+
 PHASES = ("k4_check", "k1_check", "k23_check", "graph_replay", "device_length", "k1_time",
           "fast_time", "k5_check", "k5_replay", "k5_time", "probe_check", "probe_time",
-          "measurement_path", "main_path", "graph_loop", "agreement", "floor", "serving")
+          "measurement_path", "main_path", "graph_loop", "agreement", "floor", "serving",
+          "train")
 
 
 def parse_only(argv: list) -> set:
@@ -2213,9 +2477,13 @@ def main(argv=None) -> int:
         serving_runs, serving_launches = serving_phase(torch, wrappers, cli, load_obj, card)
         runs += serving_runs
 
+    train_launches = {}
+    if "train" in only:
+        train_launches = train_phase(torch, wrappers, card)
+
     if only == set(PHASES):
         print(json.dumps(kernels_line(runs, times, probe_times, probe_launches, worst, roof_gbs,
-                                      serving_launches)), flush=True)
+                                      serving_launches, train_launches)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2270,10 +2538,11 @@ def drive_main_path(torch, wrappers: dict, cli, load_obj, paired: bool = False) 
 
 
 def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dict, worst: dict,
-                 roof_gbs: float, serving_launches: dict) -> dict:
+                 roof_gbs: float, serving_launches: dict, train_launches: dict) -> dict:
     """The ``kernels`` line: K1-K5 and T1-T5, each with its launches on the
-    main path and the serving path (``launches``; the serving path's also
-    apart: ``launches_serving``), its largest error, its time, its plain
+    main path, the serving path and the train phase's decode (``launches``;
+    the serving path's and the train phase's also apart:
+    ``launches_serving``, ``launches_train``), its largest error, its time, its plain
     version's, its bound, the library call's time where there is one, and
     its share of the measured roof."""
     launches = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
@@ -2347,6 +2616,11 @@ def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dic
         entry["launches"] += serving_launches[key]
         entry["launches_serving"] = serving_launches[key]
         entry["replayed_launches_serving"] = serving_launches[key + "_replayed"]
+    # the train phase's decode: K1 in plain greedy, the bf16 K4 in lookahead 8
+    for entry, key in ((kernels[0], "k1"), (kernels[4], "k4_window")):
+        entry["launches"] += train_launches[key]
+        entry["launches_train"] = train_launches[key]
+        entry["replayed_launches_train"] = train_launches[key + "_replayed"]
     kernels += probe_kernel_entries(probe_times, probe_launches, worst)
     data_sheet_gbs = HBM_BYTES_PER_S / 1e9
     for entry in kernels:

@@ -143,10 +143,12 @@ def _append_window(state: LookaheadState, rows: list, write_start: torch.Tensor)
 
 def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
                  max_new_tokens: int, wq_layers: Optional[Sequence] = None,
-                 sampling: bool = False, top_k: int = 50, top_p: float = 0.95) -> None:
+                 sampling: bool = False, top_k: int = 50, top_p: float = 0.95,
+                 max_accept: Optional[int] = None) -> None:
     """One W-token forward and its acceptance; updates the state's tensors
     in place and reads nothing back (a CUDA graph captures it). With no
-    live row it changes nothing but cache rows at the frozen bases."""
+    live row it changes nothing but cache rows at the frozen bases.
+    ``max_accept`` caps the tokens a row accepts in the forward."""
     lin_e = lin_dispatch(wq_layers is not None)
     b, w = state.window.shape
     dtype = p.cond_embed.dtype
@@ -183,6 +185,11 @@ def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
         emitted = preds
         hits = (state.window[:, 1:] == preds[:, :-1]).long()
         accepted = 1 + torch.cumprod(hits, dim=-1).sum(dim=-1)
+    if max_accept is not None:
+        # a prefix of an accepted run is itself accepted (each of its tokens
+        # is the greedy prediction over confirmed context), so the stream
+        # is unchanged: only the forwards it takes grow (JAX :318-325)
+        accepted = torch.clamp(accepted, max=max_accept)
     # cut at the first emitted eos (inclusive)
     is_eos = emitted == cfg.eos_token_id
     first_eos = torch.argmax(is_eos.long(), dim=-1)
@@ -280,13 +287,14 @@ def _read_counters(state: LookaheadState, max_new_tokens: int) -> tuple[int, boo
 def lookahead_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
                       max_new_tokens: int, wq_layers: Optional[Sequence] = None,
                       until_iters: Optional[int] = None, sampling: bool = False,
-                      top_k: int = 50, top_p: float = 0.95,
+                      top_k: int = 50, top_p: float = 0.95, max_accept: Optional[int] = None,
                       graph: bool = True) -> LookaheadState:
     """JAX's ``lookahead_segment``: window forwards while some row is live
     and, when given, while ``state.iters < until_iters``. The host reads
     the live flags and the forward count once every ``CHECK_EVERY``
     forwards (every forward on the CPU, where a read costs nothing); the
     forwards run past the last live one change nothing and count nothing.
+    ``max_accept`` caps each forward's acceptance (``_window_step``).
 
     On the card (``graph``) each forward is a replay of the CUDA graph
     captured, after one eager forward, for the window's width and kept in
@@ -296,7 +304,7 @@ def lookahead_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *
     register with a graph runs eagerly, with a warning."""
     def forward():
         _window_step(p, cfg, state, max_new_tokens=max_new_tokens, wq_layers=wq_layers,
-                     sampling=sampling, top_k=top_k, top_p=top_p)
+                     sampling=sampling, top_k=top_k, top_p=top_p, max_accept=max_accept)
 
     use_graph = decode_graph.use_graph(state.tokens.device, graph) and (
         not sampling or decode_graph.generator_capturable())
@@ -312,7 +320,7 @@ def lookahead_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *
                 forward()
             continue
         w = state.window.shape[1]
-        key = (max_new_tokens, sampling, top_k, top_p, id(wq_layers))
+        key = (max_new_tokens, sampling, top_k, top_p, max_accept, id(wq_layers))
         g = state.graphs.get(w)
         if g is None:
             g = decode_graph.StepGraph(forward, state.tokens.device,
@@ -369,21 +377,30 @@ def generate_lookahead(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tens
                        top_k: int = 50, top_p: float = 0.95,
                        generator: Optional[torch.Generator] = None,
                        return_stats: bool = False,
-                       prompt_ids: Optional[torch.Tensor] = None):
+                       prompt_ids: Optional[torch.Tensor] = None,
+                       max_accept: Optional[int] = None):
     """Generation with lookahead -> (B, max_new_tokens) int64; with
     ``return_stats`` also {"iterations": window forwards, "emitted":
     (B,) tokens per row past the prompt}. Greedy output is the
     step-by-step greedy stream. ``wq`` quantizes the layer matrices for
     the window forwards (the prefill runs on the originals).
     ``prompt_ids`` (B, P): continue from a token prefix (see
-    ``shape_opt.generate``), echoed at the front of the output."""
+    ``shape_opt.generate``), echoed at the front of the output.
+    ``max_accept`` caps the tokens a row accepts per forward, greedy only:
+    a measurement knob that keeps the stream and lowers the acceptance."""
+    if max_accept is not None and sampling:
+        # the accept/residual draws are spent before a cap could cut the
+        # run: the cut stream would lose the step-by-step distribution
+        raise ValueError("max_accept is a greedy-mode measurement knob; "
+                         "it does not preserve the sampling distribution")
     state = init_lookahead_state(p, cfg, cond_embeds, max_new_tokens=max_new_tokens,
                                  window=window, bucket=bucket, attn=attn, sampling=sampling,
                                  top_k=top_k, top_p=top_p, generator=generator,
                                  prompt_ids=prompt_ids)
     state = lookahead_segment(p, cfg, state, max_new_tokens=max_new_tokens,
                               wq_layers=quantize_opt_layers(p.layers) if wq else None,
-                              sampling=sampling, top_k=top_k, top_p=top_p)
+                              sampling=sampling, top_k=top_k, top_p=top_p,
+                              max_accept=max_accept)
     tokens = state.tokens[:, :max_new_tokens]
     if return_stats:
         p_len = 0 if prompt_ids is None else prompt_ids.shape[1]

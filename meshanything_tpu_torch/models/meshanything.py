@@ -75,6 +75,16 @@ def encode(m: MeshAnything, cfg: MeshAnythingConfig, pc_normal: torch.Tensor):
     return point_feature, process_point_feature(m, cfg, point_feature)
 
 
+def forward_logits(m: MeshAnything, cfg: MeshAnythingConfig, pc_normal: torch.Tensor,
+                   token_ids: torch.Tensor, *, remat: bool = False,
+                   block_q: int = 0) -> torch.Tensor:
+    """Teacher-forcing logits (B, C + T, vocab) f32 over [condition ||
+    token_ids] (JAX ``forward_logits``): the training pass. ``remat`` and
+    ``block_q`` as in ``shape_opt.forward_full``."""
+    _, cond = encode(m, cfg, pc_normal)
+    return opt_mod.forward_full(m.opt, cfg.opt, cond, token_ids, remat=remat, block_q=block_q)
+
+
 def detokenize(m: MeshAnything, cfg: MeshAnythingConfig, raw_tokens: torch.Tensor,
                point_feature: torch.Tensor) -> torch.Tensor:
     """Detok phase: raw token stream -> (B, n_max_triangles, 3, 3) coords."""

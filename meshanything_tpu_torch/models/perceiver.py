@@ -6,10 +6,10 @@
   to_shape_latents: latents[1:] --pre_kl--> Gaussian mode --post_kl-->
                     self-attn stack
 
+  query_geometry:   query points --Fourier--> query_proj --cross-attn
+                    (decoded latents)--> ln_post --> occupancy logit
+
 Attention uses the dual-sqrt scaling with an f32 softmax.
-``geo_decoder`` holds the occupancy decoder's weights so that a
-checkpoint loads whole; ``query_geometry`` itself belongs to a later
-slice of the port.
 """
 from __future__ import annotations
 
@@ -96,6 +96,16 @@ def encode_kl_mode(p: Perceiver, latents: torch.Tensor) -> torch.Tensor:
     return mean
 
 
+def encode_kl_sample(p: Perceiver, latents: torch.Tensor,
+                     generator: torch.Generator) -> torch.Tensor:
+    """pre_kl -> a draw of the DiagonalGaussian (distributions.py:36-45):
+    logvar clamped to [-30, 20], mean + std * N(0, 1) from ``generator``."""
+    mean, logvar = lin(latents, p.pre_kl).chunk(2, dim=-1)
+    std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+    noise = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+    return mean + std * noise
+
+
 def decode_latents(p: Perceiver, cfg: PerceiverConfig, kl_embed: torch.Tensor) -> torch.Tensor:
     """post_kl + the self-attention stack (sal_perceiver.py:273-275)."""
     x = lin(kl_embed, p.post_kl)
@@ -107,3 +117,22 @@ def decode_latents(p: Perceiver, cfg: PerceiverConfig, kl_embed: torch.Tensor) -
 def to_shape_latents(p: Perceiver, cfg: PerceiverConfig, latents: torch.Tensor) -> torch.Tensor:
     """Deterministic VAE round-trip of the latent tokens (asl_pl_module.py:182-185)."""
     return decode_latents(p, cfg, encode_kl_mode(p, latents))
+
+
+# queries a cross-attention call takes at once: its f32 scores are
+# (B, heads, QUERY_BLOCK, 257), ~50 MB a row at the full width
+QUERY_BLOCK = 4096
+
+
+def query_geometry(p: Perceiver, cfg: PerceiverConfig, queries: torch.Tensor,
+                   latents: torch.Tensor) -> torch.Tensor:
+    """Occupancy logits (B, P) of (B, P, 3) query points against decoded
+    latents (CrossAttentionDecoder, sal_perceiver.py:115-159). Each query
+    attends to the latents alone, so the queries go through the
+    cross-attention in blocks of QUERY_BLOCK (JAX's blockwise attention,
+    the same math)."""
+    g = p.geo_decoder
+    q = lin(fourier_embed(queries, cfg.num_freqs, cfg.include_pi), g.query_proj)
+    x = torch.cat([g.cross(q[:, i:i + QUERY_BLOCK], latents)
+                   for i in range(0, q.shape[1], QUERY_BLOCK)], dim=1)
+    return lin(ln(x, g.ln_post), g.output_proj)[..., 0]

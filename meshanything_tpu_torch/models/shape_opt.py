@@ -50,6 +50,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from meshanything_tpu_torch.config import ShapeOPTConfig
 from meshanything_tpu_torch.models.layers import attention, lin, ln
@@ -138,6 +139,18 @@ def face_phase_ids(ids: torch.Tensor, gen_index, face_per_token: int) -> torch.T
     return torch.where(ids < 3, ids, phase)
 
 
+def embed_stream(p: ShapeOPT, cfg: ShapeOPTConfig, token_ids: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """(B, T) ids in stream order (element 0 the bos slot) -> their
+    embeddings in ``dtype`` as the decode step makes them: the hybrid
+    embedding, the face phase of each generated index and cond_embed[1]
+    (the caller adds the absolute positions, C + index)."""
+    gen_index = torch.arange(token_ids.shape[1], device=token_ids.device)[None, :]
+    tok = embed_tokens(p, cfg, token_ids).to(dtype)
+    tok = tok + p.face_positions[face_phase_ids(token_ids, gen_index, cfg.face_per_token)].to(dtype)
+    return tok + p.cond_embed[1].to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # prefill and decode
 
@@ -159,6 +172,51 @@ def prefill(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor,
                       causal=True)
         x = layer.after_attention(x, o.reshape(b, c, d))
     return lin(x[:, -1], p.lm_head).float()
+
+
+def _train_layer(layer: OPTLayer, x: torch.Tensor, num_heads: int, block_q: int) -> torch.Tensor:
+    """One decoder layer of the teacher-forcing pass (JAX
+    ``_opt_layer_prefill(with_kv=False)``): causal self-attention over
+    every position, then ``after_attention``."""
+    b, n, d = x.shape
+    q, k, v = (y.reshape(b, n, num_heads, d // num_heads)
+               for y in lin(x, layer.qkv).chunk(3, dim=-1))
+    if block_q:
+        o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                           v.transpose(1, 2), is_causal=True).transpose(1, 2)
+    else:
+        o = attention(q, k, v, causal=True)
+    return layer.after_attention(x, o.reshape(b, n, d))
+
+
+def forward_full(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor,
+                 token_ids: torch.Tensor, *, remat: bool = False,
+                 block_q: int = 0) -> torch.Tensor:
+    """Teacher-forcing pass over [condition || tokens] (JAX
+    ``forward_full``) -> f32 logits (B, C + T, vocab) for every position.
+
+    The tokens are embedded as the decode step embeds them
+    (``embed_stream``) in the parameters' dtype, and joined to the
+    condition in the promoted dtype, as JAX's concatenate promotes: with
+    f32 weights the layers run in f32 whatever the condition's dtype. The
+    logits are the lm-head product in that dtype, then f32.
+
+    ``remat``: each layer under ``torch.utils.checkpoint`` (backward
+    recomputes its activations instead of keeping all of them).
+    ``block_q`` > 0: the causal attention is
+    ``scaled_dot_product_attention`` instead of the dense f32 scores of
+    ``attention``, which at 7,459 positions would hold ~3.6 GB a row a
+    layer (JAX pads to its block there; the padded rows sit in the causal
+    future of every real one, so nothing is padded here)."""
+    cond_x = cond_embeds + p.cond_embed[0].to(cond_embeds.dtype)
+    x = torch.cat([cond_x, embed_stream(p, cfg, token_ids, p.cond_embed.dtype)], dim=1)
+    x = x + p.embed_positions[cfg.pos_offset:cfg.pos_offset + x.shape[1]].to(x.dtype)
+    for layer in p.layers:
+        if remat:
+            x = checkpoint(_train_layer, layer, x, cfg.num_heads, block_q, use_reentrant=False)
+        else:
+            x = _train_layer(layer, x, cfg.num_heads, block_q)
+    return lin(x, p.lm_head).float()
 
 
 def resolve_attn(attn: str) -> str:
@@ -190,11 +248,7 @@ def prefill_with_prompt(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Ten
     h, hd = cfg.num_heads, cfg.head_dim
     dtype = cond_embeds.dtype
     cond_x = cond_embeds + p.cond_embed[0].to(dtype)
-    gen_index = torch.arange(t, device=token_ids.device)[None, :]
-    tok = embed_tokens(p, cfg, token_ids).to(dtype)
-    tok = tok + p.face_positions[face_phase_ids(token_ids, gen_index, cfg.face_per_token)].to(dtype)
-    tok = tok + p.cond_embed[1].to(dtype)
-    x = torch.cat([cond_x, tok], dim=1)
+    x = torch.cat([cond_x, embed_stream(p, cfg, token_ids, dtype)], dim=1)
     n = c + t
     x = x + p.embed_positions[cfg.pos_offset:cfg.pos_offset + n].to(dtype)
     for layer_idx, layer in enumerate(p.layers):

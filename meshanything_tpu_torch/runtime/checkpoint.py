@@ -13,6 +13,8 @@ name, so the bridge is one walk over both:
 
 It raises on a leaf it did not consume and on a parameter it did not
 fill. It takes plain numpy arrays, so the port never imports JAX.
+``jax_numpy_from_params`` is the same walk backwards: the module tree to
+JAX's nested numpy tree (the trained weights' cache is in JAX's layout).
 """
 from __future__ import annotations
 
@@ -111,6 +113,44 @@ def params_from_jax_numpy(tree: dict, cfg: MeshAnythingConfig, *, device=None) -
     if unfilled:
         raise ValueError(f"parameters not filled from the JAX tree: {unfilled}")
     return model.to(device)
+
+
+def _tree_of(module: nn.Module) -> dict:
+    def arr(t: torch.Tensor, transpose: bool = False) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.T if transpose else t).contiguous().numpy()
+
+    if isinstance(module, nn.Linear):
+        out = {"w": arr(module.weight, transpose=True)}
+        if module.bias is not None:
+            out["b"] = arr(module.bias)
+        return out
+    if isinstance(module, nn.LayerNorm):
+        return {"scale": arr(module.weight), "bias": arr(module.bias)}
+    out = {name: arr(param) for name, param in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        if isinstance(child, nn.ModuleList):
+            out[name] = _stack([_tree_of(layer) for layer in child])
+        else:
+            out[name] = _tree_of(child)
+    return out
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def jax_numpy_from_params(model: MeshAnything) -> dict:
+    """The inverse of ``params_from_jax_numpy``: the module tree -> JAX's
+    nested numpy tree (layer stacks with a leading L axis, linear weights
+    ``(in, out)``), in the module's dtype. numpy has no bfloat16, so a
+    bf16 module raises: cast it to f32 first."""
+    dtypes = {p.dtype for p in model.parameters()}
+    if torch.bfloat16 in dtypes:
+        raise ValueError("numpy has no bfloat16: cast the module to float32 first")
+    return _tree_of(model)
 
 
 @torch.no_grad()
