@@ -83,8 +83,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
   8. the main path: the CLI at the full 350M width on seeded random bf16
      weights: the exact tier twice (K1; the B=1 run cut to 200 faces, the
      B=2 run to 400),
-     then F1 --fast (K4 int8 + W8A8),
-     F2 --attn pallas_int4 --lookahead adaptive (K4 int4), F3 --lookahead
+     then F1 --fast (K4 int8 + W8A8; 400 faces),
+     F2 --attn pallas_int4 --lookahead adaptive (K4 int4; 400 faces), F3 --lookahead
      8 (K4 bf16), F4 --attn pallas_int8 (K2) and F5 --attn pallas_int4
      --wq (K3), and InferencePipeline(attn="megakernel") on the same two
      inputs (M1 B=1, M2 B=2 cut to 400 faces; K5); the OBJs must parse
@@ -137,9 +137,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
      through full_scale_probe (K1 and the bf16 K4, which must launch and
      whose graphs must replay, each counted apart, and no other kernel):
      acceptance, agreement, seconds.
+  13. checkpoint (``checkpoint_phase``): a 350M reference-format file
+     (safetensors, bf16, the reference's key names and the unread
+     ``embed_tokens``, written by the smoke's own writer) loaded onto the
+     card (seconds, GB/s; the unread key named) and saved as a native
+     checkpoint; then the CLI with --pretrained_weights and no
+     --random_weights, 100 faces, through phase 8's checks: C_exact (K1),
+     C_fast (--fast: the int8 K4), C_native (the native directory), whose
+     tokens must be bit-equal to C_exact's.
+  14. warm_start (``warm_start_phase``): main_torch.py in three processes
+     (--precompile --aot_dir D with no input; then one input with D, which
+     must build nothing and leave D as it was; then the same input with a
+     fresh store, whose OBJ must equal the warm one's), each one's wall
+     seconds and seconds to its first OBJ; in this process one
+     PhaseRunner's greedy requests at B=1, B=2, B=1 capture 1, 1, 0 graphs
+     and the third's tokens equal the first's and a fresh runner's; after
+     precompile(1) a first request captures nothing, same tokens; a
+     sampled pair with one seed on one runner equals a fresh runner's and
+     the second captures nothing; a --fast ServingEngine's second request
+     captures nothing. K1 and the int8 K4 launch, no other kernel.
 
 Before the last line it prints {"kernels": [...]} (K1-K5 and T1-T5, each
-with its launches on the main and serving paths and the train phase's decode, its time, its plain
+with its launches on the main, checkpoint and serving paths and the train phase's decode, its time, its plain
 version's, its byte or operation bound, its share of the measured roof
 and the library call's time where there is one) and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
@@ -1643,7 +1662,8 @@ def segment_steps(kernel: str) -> int:
 # repeats exact_pc's tier and would add ~1 min of eager decode to the smoke)
 PAIRED_RUNS = ("exact_pc", "F1", "F2", "F3", "F4", "F5")
 WINDOW_KERNEL_RUNS = ("F3",)      # the runs whose K4 is the bf16 tensor-core kernel
-QUANT_WINDOW_KERNEL_RUNS = ("F1", "F2")   # and those whose K4 is its int8/int4 instances
+# and those whose K4 is its int8/int4 instances
+QUANT_WINDOW_KERNEL_RUNS = ("F1", "F2", "C_fast")
 
 
 AGREEMENT_CASES = (
@@ -2360,10 +2380,301 @@ def train_phase(torch, wrappers: dict, card: str) -> dict:
             "k1_replayed": L * replays["k1"], "k4_window_replayed": L * replays["k4_window"]}
 
 
+CHECKPOINT_FACES = 100    # the depth cut of the checkpoint and warm-start runs: 901 steps
+UNREAD_KEY = "transformer.model.decoder.embed_tokens.weight"   # in the shipped file, unread
+
+
+def write_reference_checkpoint(torch, cfg, path: str, seed: int = 0) -> int:
+    """A safetensors file at ``cfg``'s width in bf16, under the reference's
+    key names (``reference_key_shapes``, from the config alone, and the
+    shipped file's unread ``embed_tokens``), written by this few-line
+    writer (no ``safetensors`` package here): seeded N(0, 0.02) weights,
+    zero biases, unit norm scales, as the CLI's random weights. Returns
+    the file's bytes."""
+    from meshanything_tpu_torch.runtime.checkpoint import reference_key_shapes
+
+    shapes = reference_key_shapes(cfg)
+    shapes[UNREAD_KEY] = (cfg.opt.vocab_size, cfg.opt.hidden_size)
+    header, offset = {}, 0
+    for name, shape in shapes.items():
+        size = 2 * int(torch.Size(shape).numel())
+        header[name] = {"dtype": "BF16", "shape": list(shape),
+                        "data_offsets": [offset, offset + size]}
+        offset += size
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with open(path, "wb") as fh:
+        fh.write(len(head).to_bytes(8, "little") + head)
+        for name, shape in shapes.items():
+            if name.endswith("bias"):
+                t = torch.zeros(shape, device="cuda")
+            elif len(shape) == 1:                    # a layer norm's scale
+                t = torch.ones(shape, device="cuda")
+            else:
+                t = torch.randn(shape, generator=gen, device="cuda") * 0.02
+            fh.write(t.bfloat16().view(torch.int16).cpu().numpy().tobytes())
+    return 8 + len(head) + offset
+
+
+def checkpoint_phase(torch, wrappers: dict, cli, load_obj, card: str) -> list:
+    """Phase 13: the reference checkpoint at the full 350M width. A seeded
+    bf16 file in the reference's format and key names
+    (``write_reference_checkpoint``) is loaded by
+    ``load_reference_checkpoint`` onto the card (seconds and GB/s, the file
+    just written, so in the page cache), which names the unread key; the
+    model is saved as a native checkpoint. Then the CLI with
+    ``--pretrained_weights <file>`` and no ``--random_weights``, cut to
+    CHECKPOINT_FACES faces, through ``run_main_path``: C_exact (K1, graph
+    replays), C_fast (``--fast``: the int8 K4), and C_native
+    (``--pretrained_weights <dir>``), whose tokens must be bit-equal to
+    C_exact's. Returns the three runs' records."""
+    import contextlib
+    import io
+
+    from meshanything_tpu_torch.config import MeshAnythingConfig
+    from meshanything_tpu_torch.runtime import checkpoint as ckpt
+    from meshanything_tpu_torch.runtime import pipeline
+
+    cfg = MeshAnythingConfig(dtype="bfloat16", n_max_triangles=CHECKPOINT_FACES)
+    failures, runs, tokens = [], [], {}
+    generate = pipeline.InferencePipeline.generate
+
+    def recording(name):
+        def gen(self, pc_normal, **kw):
+            out = generate(self, pc_normal, **kw)
+            tokens.setdefault(name, []).append(out["tokens"].cpu())
+            return out
+        return gen
+
+    with tempfile.TemporaryDirectory() as tmp:
+        npy, _ = write_inputs(tmp)
+        path, native = os.path.join(tmp, "MeshAnything_350m.pth"), os.path.join(tmp, "native")
+        t0 = time.perf_counter()
+        file_bytes = write_reference_checkpoint(torch, cfg, path)
+        write_s = time.perf_counter() - t0
+        log = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(log):
+            model = ckpt.load_reference_checkpoint(path, cfg, device=torch.device("cuda"),
+                                                   dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if UNREAD_KEY not in log.getvalue() or {p.dtype for p in model.parameters()} != {
+                torch.bfloat16}:
+            failures.append(f"load: {log.getvalue()[:500]!r}")
+        n_params = sum(p.numel() for p in model.parameters())
+        t0 = time.perf_counter()
+        ckpt.save_native(model, native)
+        save_s = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+
+        common = ["--input_type", "pc_normal", "--input_path", npy, "--out_dir",
+                  os.path.join(tmp, "out"), "--seed", "0", "--dtype", "bfloat16", "--device",
+                  "cuda", "--n_max_triangles", str(CHECKPOINT_FACES)]
+        for name, argv, kernel in (
+                ("C_exact", ["--pretrained_weights", path, *common], "k1"),
+                ("C_fast", ["--fast", "--pretrained_weights", path, *common], "k4"),
+                ("C_native", ["--pretrained_weights", native, *common], "k1")):
+            pipeline.InferencePipeline.generate = recording(name)
+            try:
+                runs.append(run_main_path(torch, wrappers, load_obj, name,
+                                          lambda argv=argv: cli.main(argv), 1, kernel,
+                                          max_faces=CHECKPOINT_FACES, argv=argv))
+            finally:
+                pipeline.InferencePipeline.generate = generate
+        native_equal = torch.equal(tokens["C_exact"][0], tokens["C_native"][0])
+        if not native_equal:
+            failures.append("the native checkpoint's tokens differ from the file's")
+    emit("checkpoint", file_bytes=file_bytes, parameters=n_params, write_s=write_s,
+         load_s=load_s, load_gb_per_s=file_bytes / load_s / 1e9, save_native_s=save_s,
+         unread_named=UNREAD_KEY in log.getvalue(), native_tokens_bit_equal=native_equal,
+         runs={r["run"]: {f: r[f] for f in ("decode_steps", "graph_captures", "graph_replays",
+                                            "capture_s", "wall_s", "faces")} for r in runs},
+         card=card)
+    if failures:
+        raise AssertionError(f"checkpoint: {failures}")
+    return runs
+
+
+def _process(args: list, out_dir: str, cwd: str) -> dict:
+    """Run ``main_torch.py`` with ``args`` in a process of its own -> its
+    exit code, wall seconds, seconds from its start to its first OBJ (the
+    file's time), and its ``[aot]`` lines."""
+    import glob
+
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "main_torch.py"),
+                           "--out_dir", out_dir, *args], capture_output=True, text=True,
+                          timeout=600, cwd=cwd)
+    wall = time.time() - t0
+    objs = glob.glob(os.path.join(out_dir, "*", "*_gen.obj"))
+    return {"rc": proc.returncode, "wall_s": wall,
+            "first_obj_s": min(os.path.getmtime(o) for o in objs) - t0 if objs else None,
+            "objs": sorted(objs), "aot": [ln for ln in proc.stderr.splitlines()
+                                          if ln.startswith("[aot]")],
+            "tail": proc.stderr[-1500:]}
+
+
+def warm_start_phase(torch, wrappers: dict, load_obj, card: str) -> None:
+    """Phase 14: the warm start at the full 350M width (seeded random bf16
+    weights), cut to CHECKPOINT_FACES faces.
+
+    Processes of ``main_torch.py``: ``--precompile --aot_dir D`` with no
+    input builds K1 into a fresh D; then one pc_normal input with the same
+    D must build nothing (every library found, no ``built`` line, D's
+    files unchanged: no nvcc ran, not even ``--version``); then the same
+    input with a fresh store (cold), whose OBJ must equal the warm one's.
+    Each one's wall seconds, and to its first OBJ.
+
+    In this process: one ``PhaseRunner`` takes greedy requests at B=1,
+    B=2 and B=1 again: ``graph_captures`` 1, 1, 0, and the third's tokens
+    bit-equal to the first's and to a fresh runner's; a runner after
+    ``precompile(1)`` captures nothing for its first request and gives the
+    same tokens; a sampled request twice with one seed on one runner (the
+    second captures nothing) gives a fresh runner's tokens; a ``--fast``
+    ServingEngine's second request captures nothing. The counts are set to
+    0 before and read after: K1 and the int8 K4, and no other kernel."""
+    import numpy as np
+
+    from meshanything_tpu_torch import serving
+    from meshanything_tpu_torch.config import MeshAnythingConfig
+    from meshanything_tpu_torch.runtime.checkpoint import init_random_params
+    from meshanything_tpu_torch.runtime.decode_graph import StepGraph, generator_capturable
+    from meshanything_tpu_torch.runtime.phases import PhaseRunner
+    from meshanything_tpu_torch.runtime.pipeline import load_inputs
+
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        npy, mesh_dir = write_inputs(tmp)
+        common = ["--random_weights", "--seed", "0", "--dtype", "bfloat16", "--device", "cuda",
+                  "--n_max_triangles", str(CHECKPOINT_FACES)]
+        store, cold_store = os.path.join(tmp, "aot"), os.path.join(tmp, "aot_cold")
+        pc_input = ["--input_type", "pc_normal", "--input_path", npy]
+        def listing(d):
+            return ({n: os.path.getmtime(os.path.join(d, n)) for n in os.listdir(d)}
+                    if os.path.isdir(d) else {})
+
+        pre = _process(["--precompile", "--aot_dir", store, *common], os.path.join(tmp, "o1"),
+                       tmp)
+        stored = listing(store)
+        warm = _process(["--aot_dir", store, *pc_input, *common], os.path.join(tmp, "o2"), tmp)
+        after = listing(store)
+        cold = _process(["--aot_dir", cold_store, *pc_input, *common], os.path.join(tmp, "o3"),
+                        tmp)
+        procs = {"precompile": pre, "warm": warm, "cold": cold}
+        for name, p in procs.items():
+            if p["rc"]:
+                failures.append(f"{name}: exit {p['rc']}: {p['tail']}")
+        libs = [n for n in stored if n.endswith(".so")]
+        if not any(n.startswith("decode_attention-") for n in libs) or not any(
+                "built decode_attention" in ln for ln in pre["aot"]):
+            failures.append(f"precompile stored {sorted(stored)}: {pre['aot']}")
+        if (any(" built " in ln or "rebuilding" in ln for ln in warm["aot"])
+                or not any("found decode_attention" in ln for ln in warm["aot"])
+                or after != stored):
+            failures.append(f"the warm process built: {warm['aot']}, {sorted(after)}")
+        if not any("built decode_attention" in ln for ln in cold["aot"]):
+            failures.append(f"the cold process found a library: {cold['aot']}")
+        same_obj = bool(warm["objs"] and cold["objs"]) and (
+            open(warm["objs"][0], "rb").read() == open(cold["objs"][0], "rb").read())
+        if not same_obj:
+            failures.append("the warm and the cold process wrote different OBJs")
+
+        cfg = MeshAnythingConfig(dtype="bfloat16", n_max_triangles=CHECKPOINT_FACES)
+        model = init_random_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   cfg.activation_dtype)
+        rows = [load_inputs("pc_normal", [npy], num_points=cfg.perceiver.num_points,
+                            seed=s)[0].pc_normal for s in (0, 1)]
+        b1 = torch.from_numpy(np.stack(rows[:1]).astype(np.float32)).cuda()
+        b2 = torch.from_numpy(np.stack(rows).astype(np.float32)).cuda()
+        _zero_counts(wrappers)
+        runner = PhaseRunner(model, cfg)
+        outs = [runner.run(pc) for pc in (b1, b2, b1)]
+        fresh = PhaseRunner(model, cfg).run(b1)
+        pre_runner = PhaseRunner(model, cfg)
+        report = pre_runner.precompile(1)
+        after_pre = pre_runner.run(b1)
+        exact_counts = _serving_counts(wrappers)
+        _zero_counts(wrappers)
+        seeded = [PhaseRunner(model, cfg)]
+        seeded.append(seeded[0])
+        seeded.append(PhaseRunner(model, cfg))
+        sampled = [r.run(b1, sampling=True,
+                         generator=torch.Generator(device="cuda").manual_seed(7))
+                   for r in seeded]
+        sampled_counts = _serving_counts(wrappers)
+        captures = [o["graph_captures"] for o in outs]
+        same = [torch.equal(outs[2]["tokens"], outs[0]["tokens"]),
+                torch.equal(outs[2]["tokens"], fresh["tokens"]),
+                torch.equal(after_pre["tokens"], fresh["tokens"])]
+        sampled_same = [torch.equal(s["tokens"], sampled[0]["tokens"]) for s in sampled[1:]]
+        capturable = generator_capturable()
+        if captures != [1, 1, 0] or not all(same):
+            failures.append(f"kept graphs: captures {captures}, tokens equal {same}")
+        if report["graph_captures"] != 1 or after_pre["graph_captures"] != 0:
+            failures.append(f"precompile {report}, then {after_pre['graph_captures']} captures")
+        if not all(sampled_same) or (capturable and [s["graph_captures"] for s in sampled]
+                                     != [1, 0, 1]):
+            failures.append(f"sampled: equal {sampled_same}, captures "
+                            f"{[s['graph_captures'] for s in sampled]}")
+        for counts in (exact_counts, sampled_counts):
+            other = {k: v for k, v in counts.items()
+                     if k not in ("k1", "graph_captures", "graph_replays") and v}
+            if (not counts["k1"] or other or (counts["graph_captures"] and counts["k1"] != 2 * L
+                                              * counts["graph_captures"])):
+                failures.append(f"greedy and sampled counts {exact_counts}, {sampled_counts}")
+
+        _zero_counts(wrappers)
+        engine = serving.ServingEngine(model, cfg, attn="pallas_int8", lookahead=8, wq=True,
+                                       artifacts_dir=os.path.join(tmp, "serving"))
+        served = []
+        for name in ("cube.obj", "octa.obj"):
+            mesh = load_obj(os.path.join(mesh_dir, name))
+            before = StepGraph.captures
+            result = engine.generate_from_mesh(mesh.vertices, mesh.faces, seed=0,
+                                               export_artifacts=False)
+            served.append({"capture_s": result["capture_s"], "latency_s": result["latency_s"],
+                           "graph_captures": StepGraph.captures - before,
+                           "faces": result["faces_generated"]})
+        engine.close()
+        fast_counts = _serving_counts(wrappers)
+        if [s["graph_captures"] for s in served] != [1, 0] or served[1]["capture_s"] != 0:
+            failures.append(f"the --fast engine's second request captured: {served}")
+        fast_other = {k: v for k, v in fast_counts.items()
+                      if k not in ("k4", "k4_quant_window", "graph_captures", "graph_replays")
+                      and v}
+        if (not fast_counts["k4_quant_window"] or fast_counts["k4"] != fast_counts[
+                "k4_quant_window"] or fast_other):
+            failures.append(f"fast counts {fast_counts}")
+        del runner, pre_runner, seeded, engine, model
+        torch.cuda.empty_cache()
+
+    def request(o):
+        return {f: o[f] for f in ("capture_s", "graph_captures", "graph_replays", "decode_s",
+                                  "decode_steps")}
+
+    emit("warm_start", faces=CHECKPOINT_FACES,
+         processes={k: {f: v[f] for f in ("rc", "wall_s", "first_obj_s", "aot")}
+                    for k, v in procs.items()},
+         store_files=sorted(stored), warm_cold_obj_equal=same_obj,
+         requests=[{"batch": b, **request(o)} for b, o in zip((1, 2, 1), outs)],
+         fresh=request(fresh), tokens_equal=same, precompile=report,
+         after_precompile=request(after_pre),
+         sampled=[request(s) for s in sampled], sampled_tokens_equal=sampled_same,
+         generator_capturable=capturable, serving_fast=served,
+         launches={"exact": exact_counts, "sampled": sampled_counts, "fast": fast_counts},
+         card=card)
+    if failures:
+        raise AssertionError(f"warm_start: {failures}")
+
+
 PHASES = ("k4_check", "k1_check", "k23_check", "graph_replay", "device_length", "k1_time",
           "fast_time", "k5_check", "k5_replay", "k5_time", "probe_check", "probe_time",
           "measurement_path", "main_path", "graph_loop", "agreement", "floor", "serving",
-          "train")
+          "train", "checkpoint", "warm_start")
 
 
 def parse_only(argv: list) -> set:
@@ -2480,6 +2791,10 @@ def main(argv=None) -> int:
     train_launches = {}
     if "train" in only:
         train_launches = train_phase(torch, wrappers, card)
+    if "checkpoint" in only:
+        runs += checkpoint_phase(torch, wrappers, cli, load_obj, card)
+    if "warm_start" in only:
+        warm_start_phase(torch, wrappers, load_obj, card)
 
     if only == set(PHASES):
         print(json.dumps(kernels_line(runs, times, probe_times, probe_launches, worst, roof_gbs,
@@ -2511,8 +2826,10 @@ def drive_main_path(torch, wrappers: dict, cli, load_obj, paired: bool = False) 
             # near half its time limit; M1 is the full-length B=1 run
             ("exact_pc", ["--n_max_triangles", "200", *pc], 1, "k1", 200),
             ("exact_meshes", ["--n_max_triangles", "400", *meshes], 2, "k1", 400),
-            ("F1", ["--fast", *pc], 1, "k4", 800),
-            ("F2", ["--attn", "pallas_int4", "--lookahead", "adaptive", *meshes], 2, "k4", 800),
+            # F1 and F2 cut to 400 faces (3601 steps), for the smoke's time
+            ("F1", ["--fast", "--n_max_triangles", "400", *pc], 1, "k4", 400),
+            ("F2", ["--attn", "pallas_int4", "--lookahead", "adaptive", "--n_max_triangles",
+                    "400", *meshes], 2, "k4", 400),
             ("F3", ["--lookahead", "8", *pc], 1, "k4", 800),
             ("F4", ["--attn", "pallas_int8", *short, *pc], 1, "k2", 100),
             ("F5", ["--attn", "pallas_int4", "--wq", *short, *meshes], 2, "k3", 100),

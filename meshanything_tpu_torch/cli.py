@@ -1,11 +1,15 @@
 """CLI of the PyTorch port, with the reference's flags for the main path
-(main.py:60-89):
+(main.py:60-89) and the JAX CLI's:
 
-    python -m meshanything_tpu_torch.cli --input_path pc.npy --input_type pc_normal \\
-        --random_weights
+    python -m meshanything_tpu_torch.cli --input_path pc.npy --input_type pc_normal
+    python main_torch.py --input_path pc.npy --input_type pc_normal    # the same
 
-writes ``<out_dir>/<time>/<uid>_gen.obj``. ``--device cuda`` (the default)
-needs a card and never falls back to the CPU.
+reads the reference checkpoint ``--pretrained_weights`` (default
+``MeshAnything_350m.pth``: a safetensors file, converted as JAX converts
+it; a directory is a checkpoint of the port's own, ``save_native``), or
+seeded random weights with ``--random_weights``, and writes
+``<out_dir>/<time>/<uid>_gen.obj``. ``--device cuda`` (the default) needs
+a card and never falls back to the CPU.
 
 The fast tier: ``--attn pallas_int8|pallas_int4`` (quantized KV cache),
 ``--lookahead N|adaptive`` (Jacobi windows), ``--wq`` (int8 W8A8 layer
@@ -13,8 +17,13 @@ matrices), and ``--fast``, which means ``--wq --attn pallas_int8
 --lookahead 8`` with an explicit ``--attn``/``--lookahead`` winning over
 the preset. ``--mc`` watertights mesh inputs through the distance field
 and marching tetrahedra first; ``--complete_from`` continues the faces of
-a partial mesh (mesh completion). Flags of slices not ported yet
-(``--pretrained_weights``, ``--attn xla``) raise. As in the JAX CLI,
+a partial mesh (mesh completion). ``--metrics_out`` writes the records one
+JSON object a line, ``--resume`` skips inputs whose OBJ exists,
+``--aot_dir`` keeps the built kernel libraries in a directory that a
+later process finds them in (``runtime/aot.py``), and ``--precompile``
+builds them and captures the batch size's decode graphs before the first
+input (with no input, it only does that). Flags of slices not ported yet
+(``--multihost``, ``--attn xla``) raise. As in the JAX CLI,
 ``--attn megakernel`` is no choice: ``InferencePipeline(attn="megakernel")``
 is that path's entry. ``python -m meshanything_tpu_torch.serving`` takes
 the same flags and serves over HTTP.
@@ -69,8 +78,21 @@ def get_args(argv=None):
     parser.add_argument("--complete_from", default=None, type=str,
                         help="partial mesh (model output space [-0.5, 0.5)) whose faces seed "
                              "the decoder: mesh completion")
+    parser.add_argument("--pretrained_weights", default="MeshAnything_350m.pth", type=str,
+                        help="the reference checkpoint (safetensors), or a directory of the "
+                             "port's own checkpoint (save_native)")
+    parser.add_argument("--metrics_out", default=None, type=str,
+                        help="write the result records here, one JSON object a line")
+    parser.add_argument("--resume", default=False, action="store_true",
+                        help="skip inputs whose output OBJ already exists")
+    parser.add_argument("--aot_dir", default=None, type=str,
+                        help="directory of built kernel libraries (runtime/aot.py): a later "
+                             "process finds them there instead of running nvcc")
+    parser.add_argument("--precompile", default=False, action="store_true",
+                        help="build the kernel libraries and capture the batch size's decode "
+                             "graphs before the first input (no input needed)")
     # a flag of a later slice: accepted so that it fails with a clear message
-    parser.add_argument("--pretrained_weights", default=None, type=str)
+    parser.add_argument("--multihost", default=False, action="store_true")
     return apply_fast_preset(parser.parse_args(argv))
 
 
@@ -90,19 +112,16 @@ def apply_fast_preset(args):
 def check_ported(args) -> None:
     """Raise on flags whose code is not ported yet."""
     later = {
-        "--pretrained_weights": args.pretrained_weights is not None,
+        "--multihost": args.multihost,
         "--attn": args.attn not in ("auto", "pallas", "pallas_int8", "pallas_int4"),
     }
     named = [flag for flag, given in later.items() if given]
     if named:
         raise NotImplementedError(
-            f"{', '.join(named)}: not ported yet to meshanything_tpu_torch "
-            "(it runs the exact and the fast tiers of the decode: --attn "
+            f"{', '.join(named)}: not ported yet to meshanything_tpu_torch (it runs the "
+            "exact and the fast tiers of the decode on one card: --attn "
             "pallas|pallas_int8|pallas_int4, --lookahead, --wq, --fast; --mc, "
             "--complete_from)")
-    if not args.random_weights:
-        raise NotImplementedError(
-            "checkpoint loading is not ported yet: pass --random_weights")
 
 
 def build_config(args):
@@ -127,30 +146,61 @@ def resolve_device(name: str):
 
 
 def load_params(args, cfg, device):
+    """The model on ``device`` in ``--dtype`` (JAX cli.py:115-140): seeded
+    random weights (``--random_weights``), the port's own checkpoint (a
+    directory) or the reference checkpoint (a file)."""
     import torch
 
-    from meshanything_tpu_torch.runtime.checkpoint import init_random_params
+    from meshanything_tpu_torch.runtime import checkpoint as ckpt
 
-    generator = torch.Generator(device=device)
-    generator.manual_seed(args.seed)
-    print(f"using random weights (--random_weights, seed {args.seed})")
-    return init_random_params(cfg, generator, cfg.activation_dtype)
+    dtype = cfg.activation_dtype
+    if args.random_weights:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(args.seed)
+        print(f"using random weights (--random_weights, seed {args.seed})")
+        return ckpt.init_random_params(cfg, generator, dtype)
+    path = args.pretrained_weights
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"checkpoint {path!r} not found. Download MeshAnything_350m.pth "
+            "from the HF hub (Yiwen-ntu/MeshAnything) and pass "
+            "--pretrained_weights, or use --random_weights for a smoke run."
+        )
+    if os.path.isdir(path):
+        return ckpt.load_native(path, cfg, device=device, dtype=dtype)
+    model = ckpt.load_reference_checkpoint(path, cfg, device=device, dtype=dtype)
+    print("converted reference checkpoint:", path)
+    return model
 
 
 def collect_inputs(args):
+    """The input files (JAX cli.py:143-156): a folder's ``.npy`` files for
+    pc_normal, its ``.ply .obj .npy .stl .off .glb`` files for meshes;
+    with ``--precompile`` and no input, none."""
     if args.input_dir is not None:
         names = sorted(os.listdir(args.input_dir))
-        suffixes = ((".npy",) if args.input_type == "pc_normal"
-                    else (".ply", ".obj", ".stl", ".off", ".glb"))
-        return [os.path.join(args.input_dir, n) for n in names if n.endswith(suffixes)]
+        if args.input_type == "pc_normal":
+            names = [n for n in names if n.endswith(".npy")]
+        else:
+            names = [n for n in names
+                     if n.endswith((".ply", ".obj", ".npy", ".stl", ".off", ".glb"))]
+        return [os.path.join(args.input_dir, n) for n in names]
     if args.input_path is not None:
         return [args.input_path]
+    if args.precompile:
+        return []  # build and capture only
     raise ValueError("input_dir or input_path must be provided.")
 
 
 def main(argv=None):
-    from meshanything_tpu_torch.runtime.pipeline import InferencePipeline, load_inputs
+    from meshanything_tpu_torch.runtime.compile_cache import enable as enable_compile_cache
+    from meshanything_tpu_torch.runtime.pipeline import (
+        InferencePipeline,
+        load_inputs,
+        write_metrics,
+    )
 
+    enable_compile_cache()
     args = get_args(argv)
     check_ported(args)
     device = resolve_device(args.device)
@@ -160,7 +210,8 @@ def main(argv=None):
     os.makedirs(out_dir, exist_ok=True)
 
     model = load_params(args, cfg, device)
-    samples = load_inputs(args.input_type, collect_inputs(args), marching_cubes=args.mc,
+    paths = collect_inputs(args)
+    samples = load_inputs(args.input_type, paths, marching_cubes=args.mc,
                           num_points=cfg.perceiver.num_points, seed=args.seed)
     print(f"dataset total data samples: {len(samples)}")
 
@@ -176,14 +227,25 @@ def main(argv=None):
               f"({len(prompt_tokens)} tokens) from {args.complete_from}")
 
     pipe = InferencePipeline(model, cfg, batch_size=args.batchsize_per_gpu, bucket=args.bucket,
-                             attn=args.attn, lookahead=args.lookahead, wq=args.wq)
+                             attn=args.attn, lookahead=args.lookahead, wq=args.wq,
+                             aot_dir=args.aot_dir)
+    if args.precompile:
+        t0 = time.time()
+        report = pipe.runner.precompile(args.batchsize_per_gpu, sampling=args.sampling)
+        where = f" (kernel libraries in {args.aot_dir})" if args.aot_dir else ""
+        print(f"precompile done in {time.time() - t0:.1f}s: built {report['built']}, "
+              f"{report['graph_captures']} decode graphs captured{where}")
+        if not paths:
+            return []
     begin = time.time()
     print("Generation Start!!!")
     results = pipe.run(samples, out_dir, sampling=args.sampling, seed=args.seed,
-                       prompt_tokens=prompt_tokens)
+                       resume=args.resume, prompt_tokens=prompt_tokens)
     for r in results:
         print(f"{r.get('obj_path', r['uid'])} Over!!")
     print(f"Total time: {time.time() - begin}")
+    if args.metrics_out:
+        write_metrics(results, args.metrics_out)
     return results
 
 

@@ -244,13 +244,20 @@ def init_lookahead_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Te
                          attn: str = "pallas", sampling: bool = False, top_k: int = 50,
                          top_p: float = 0.95, generator: Optional[torch.Generator] = None,
                          buf_window: Optional[int] = None,
-                         prompt_ids: Optional[torch.Tensor] = None) -> LookaheadState:
+                         prompt_ids: Optional[torch.Tensor] = None,
+                         into: Optional[LookaheadState] = None) -> LookaheadState:
     """Prefill and first token. ``buf_window`` (>= window, default the
     window) sizes the token buffer's scratch tail and the cache padding
     for the widest window the state will be resized to. With
     ``prompt_ids`` (B, P) (JAX ``:447-533``) the prefill runs over
     [condition || prompt], the prompt is echoed into the token buffer and
-    every row starts at step P + 1."""
+    every row starts at step P + 1.
+
+    ``into``: a state made before by this function with the same
+    arguments but the condition, prompt and generator (a kept state, with
+    its graphs a width): the prefill writes into its cache and every
+    other tensor is set in place (``decode_graph.refill_state``; the
+    window at ``window``'s width), and ``into`` is returned."""
     attn = resolve_attn(attn)
     check_attn(attn)
     bw = window if buf_window is None else buf_window
@@ -261,8 +268,10 @@ def init_lookahead_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Te
     p_len = check_prompt(prompt_ids, max_new_tokens)
     if prompt_ids is not None:
         prompt_ids = prompt_ids.to(device=dev, dtype=torch.int64)
+    if into is not None and into.attn != attn:
+        raise ValueError(f"a state of attn={into.attn!r} refilled for attn={attn!r}")
     logits0, kv = prefill_cache(p, cfg, cond_embeds, attn, c + max_new_tokens + bw, bucket,
-                                prompt_ids)
+                                prompt_ids, kv=None if into is None else into.kv)
     first = (sample_token(logits0, sampling=True, top_k=top_k, top_p=top_p, generator=generator)
              if sampling else torch.argmax(logits0, dim=-1))
     tokens = torch.full((b, max_new_tokens + bw), cfg.eos_token_id, dtype=torch.int64, device=dev)
@@ -271,10 +280,11 @@ def init_lookahead_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Te
     tokens[:, p_len] = first
     win = torch.zeros((b, window), dtype=torch.int64, device=dev)
     win[:, 0] = first
-    return LookaheadState(steps=torch.full((b,), p_len + 1, dtype=torch.int64, device=dev),
-                          tokens=tokens, kv=kv, done=first == cfg.eos_token_id, window=win,
-                          iters=0, iters_t=torch.zeros((), dtype=torch.int64, device=dev),
-                          attn=attn, generator=generator)
+    state = LookaheadState(steps=torch.full((b,), p_len + 1, dtype=torch.int64, device=dev),
+                           tokens=tokens, kv=kv, done=first == cfg.eos_token_id, window=win,
+                           iters=0, iters_t=torch.zeros((), dtype=torch.int64, device=dev),
+                           attn=attn, generator=generator)
+    return state if into is None else decode_graph.refill_state(into, state)
 
 
 def _read_counters(state: LookaheadState, max_new_tokens: int) -> tuple[int, bool]:

@@ -266,13 +266,14 @@ def prefill_with_prompt(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Ten
 
 
 def prefill_cache(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, attn: str,
-                  seq: int, bucket: int,
-                  prompt_ids: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
-    """Allocate the decode cache for ``seq`` rows (padded to ``bucket``)
-    and prefill it with the condition and, when given, the prompt ->
-    (first logits (B, vocab) f32, cache). Quantized tiers prefill a
-    compact (C + P)-row tensor and quantize it into rows [0, C + P) of the
-    preallocated caches."""
+                  seq: int, bucket: int, prompt_ids: Optional[torch.Tensor] = None,
+                  kv: Optional[Cache] = None) -> Tuple[torch.Tensor, Cache]:
+    """Allocate the decode cache for ``seq`` rows (padded to ``bucket``),
+    or take ``kv`` (a cache of a kept state: its rows past the prefill's
+    are never read before a step writes them), and prefill it with the
+    condition and, when given, the prompt -> (first logits (B, vocab)
+    f32, cache). Quantized tiers prefill a compact (C + P)-row tensor and
+    quantize it into rows [0, C + P) of the preallocated caches."""
     b, c, _ = cond_embeds.shape
     n = c + (0 if prompt_ids is None else prompt_ids.shape[1])
     n_layers, hd = cfg.num_layers, cfg.hidden_size
@@ -283,18 +284,21 @@ def prefill_cache(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, a
         return prefill_with_prompt(p, cfg, cond_embeds, prompt_ids, kv)
 
     if attn not in QUANTIZED:
-        kv = alloc_kv_cache(n_layers, b, seq, cfg.num_heads, cfg.head_dim,
-                            dtype=cond_embeds.dtype, chunk=bucket, device=cond_embeds.device)
+        if kv is None:
+            kv = alloc_kv_cache(n_layers, b, seq, cfg.num_heads, cfg.head_dim,
+                                dtype=cond_embeds.dtype, chunk=bucket, device=cond_embeds.device)
         return run_prefill(kv), kv
     compact = torch.empty((2, n_layers, b, n, hd), dtype=cond_embeds.dtype,
                           device=cond_embeds.device)
     logits0 = run_prefill(compact)
-    values, scales = alloc_quantized_cache(attn, n_layers, b, seq, hd, chunk=bucket,
-                                           device=cond_embeds.device)
+    if kv is None:
+        kv = alloc_quantized_cache(attn, n_layers, b, seq, hd, chunk=bucket,
+                                   device=cond_embeds.device)
+    values, scales = kv
     codes, row_scales = quantize_rows_for(attn)(compact)
     values[:, :, :, :n] = codes
     scales[:, :, :, 0, :n] = row_scales[..., 0]
-    return logits0, (values, scales)
+    return logits0, kv
 
 
 def check_prompt(prompt_ids: Optional[torch.Tensor], max_new_tokens: int) -> int:
@@ -328,19 +332,28 @@ def init_decode_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tenso
                       top_p: float = 0.95, temperature: float = 1.0, bucket: int = 512,
                       generator: Optional[torch.Generator] = None,
                       attn: str = "pallas",
-                      prompt_ids: Optional[torch.Tensor] = None) -> DecodeState:
+                      prompt_ids: Optional[torch.Tensor] = None,
+                      into: Optional[DecodeState] = None) -> DecodeState:
     """Allocate the cache (S padded to ``bucket``), prefill it, and take
     the first token. With ``prompt_ids`` (B, P) (JAX ``:499-570``) the
     prefill runs over [condition || prompt], the prompt is echoed into
     the token buffer, the first token goes to slot P and the decode goes
-    on from step P + 1 (its cache row C + P)."""
+    on from step P + 1 (its cache row C + P).
+
+    ``into``: a state made before with the same batch, length, bucket and
+    tier (a kept state, with its captured graph): the prefill writes into
+    its cache and every other tensor is set in place
+    (``decode_graph.refill_state``), so that its graph replays the new
+    request. Returns ``into`` then."""
     attn = resolve_attn(attn)
     b, c, _ = cond_embeds.shape
     p_len = check_prompt(prompt_ids, max_new_tokens)
     if prompt_ids is not None:
         prompt_ids = prompt_ids.to(device=cond_embeds.device, dtype=torch.int64)
+    if into is not None and into.attn != attn:
+        raise ValueError(f"a state of attn={into.attn!r} refilled for attn={attn!r}")
     logits0, kv = prefill_cache(p, cfg, cond_embeds, attn, c + max_new_tokens, bucket,
-                                prompt_ids)
+                                prompt_ids, kv=None if into is None else into.kv)
     first = sample_token(logits0, sampling=sampling, top_k=top_k, top_p=top_p,
                          temperature=temperature, generator=generator)
     tokens = torch.full((b, max_new_tokens), cfg.eos_token_id, dtype=torch.int64,
@@ -348,10 +361,11 @@ def init_decode_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tenso
     if p_len:
         tokens[:, :p_len] = prompt_ids
     tokens[:, p_len] = first
-    return DecodeState(step=p_len + 1,
-                       step_t=torch.full((), p_len + 1, dtype=torch.int64, device=tokens.device),
-                       tokens=tokens, kv=kv, done=first == cfg.eos_token_id, last_token=first,
-                       generator=generator, attn=attn)
+    state = DecodeState(step=p_len + 1,
+                        step_t=torch.full((), p_len + 1, dtype=torch.int64, device=tokens.device),
+                        tokens=tokens, kv=kv, done=first == cfg.eos_token_id, last_token=first,
+                        generator=generator, attn=attn)
+    return state if into is None else decode_graph.refill_state(into, state)
 
 
 def _step_attention(state: DecodeState, layer_idx: int, write_pos: torch.Tensor,
@@ -500,16 +514,20 @@ def decode_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
 
 def decode_loop(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *, max_new_tokens: int,
                 sync_every: int = 32, wq: bool = False, early_exit: bool = True,
-                graph: bool = True, **sample_kw) -> DecodeState:
+                graph: bool = True, wq_layers: Optional[Sequence] = None,
+                **sample_kw) -> DecodeState:
     """Decode until ``max_new_tokens`` or, with ``early_exit``, until
     every row is done: segments (``decode_segment``) of ``sync_every``
     steps, the host reading the step counter once after each, so the
     steps past the last live one are at most a segment's no-op replays
     and ``state.step`` ends where JAX's loop ends. With ``wq`` the layer
-    matrices are quantized once, here, and with ``attn="megakernel"``
-    they are packed for K5 once, here (prefill ran on the originals)."""
+    matrices are quantized once, here (or given already quantized as
+    ``wq_layers``, as a runner that keeps its graphs gives them), and with
+    ``attn="megakernel"`` they are packed for K5 once, here (prefill ran
+    on the originals)."""
     check_wq(state.attn, wq)
-    wq_layers = quantize_opt_layers(p.layers) if wq else None
+    if wq and wq_layers is None:
+        wq_layers = quantize_opt_layers(p.layers)
     mega_layers = pack_megakernel_layers(p.layers) if state.attn == "megakernel" else None
     while state.step < max_new_tokens:
         until = min(state.step + sync_every, max_new_tokens)

@@ -27,7 +27,10 @@ reproducibility is part of the API contract (reference app.py seeds each
 request).
 
 The wrapped runner (``runtime/phases.py::PhaseRunner``) serialises the
-device work of the worker and of pass-through callers.
+device work of the worker and of pass-through callers, and keeps a decode
+state and its graphs for each batch size it runs: the padded sizes here
+are those keys, so a size's first batch captures and the later ones
+replay.
 """
 from __future__ import annotations
 

@@ -20,16 +20,25 @@ its workspace and each kernel library its shared-memory opt-in, and none
 of that may happen inside a capture. The warm-up is a real step of the
 state, so the caller counts it. A capture that fails raises: nothing
 falls back to the eager loop. A graph lives as long as the state that
-holds it, one a request (and one a window width), so it goes with the
-cache before detok allocates.
+holds it (one a window width). ``runtime/phases.py::PhaseRunner`` keeps a
+state and its graphs for each batch size and mode across requests: a new
+request's prefill is written into the kept state's tensors
+(``refill_state``) and the graph captured for an earlier request
+replays it. ``pool_bytes`` is what a capture's private memory pool took
+from the card (the budget counts it while the state is kept).
 
-Sampling draws from the request's own ``torch.Generator``, which the
-graph must register (``CUDAGraph.register_generator_state``); where the
-installed torch has no such call, ``generator_capturable`` is false and
-the callers keep the sampled mode eager, with a warning.
+Sampling draws from a ``torch.Generator`` that the graph registers
+(``CUDAGraph.register_generator_state``): the request's own, or, for a
+kept state, the state's generator, into which the runner copies the
+request generator's seed and offset before the decode and back after
+(``get_state``/``set_state`` change the registered state in place, so the
+replays draw what the request's generator would). Where the installed
+torch has no such call, ``generator_capturable`` is false and the callers
+keep the sampled mode eager, with a warning.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 import warnings
 from typing import Callable, Optional
@@ -88,9 +97,11 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:
             self.graph.register_generator_state(generator)
+        reserved = torch.cuda.memory_reserved(device)
         with torch.cuda.graph(self.graph, stream=stream):
             fn()
         torch.cuda.synchronize(device)
+        self.pool_bytes = max(torch.cuda.memory_reserved(device) - reserved, 0)
         self.capture_s = time.perf_counter() - t0     # the warm-up step's time included
         self.key = key
         self.replayed = 0
@@ -102,3 +113,22 @@ class StepGraph:
             self.graph.replay()
         self.replayed += n
         StepGraph.replays += n
+
+
+def refill_state(into, fresh):
+    """Set every tensor of the state ``into`` to the same field of
+    ``fresh`` (a state made for a new request) in place, and its host
+    fields to fresh's; its cache (which the new prefill wrote) and its
+    captured graphs stay. Returns ``into``."""
+    for field in dataclasses.fields(fresh):
+        new, old = getattr(fresh, field.name), getattr(into, field.name)
+        if field.name in ("kv", "graph", "graphs"):
+            continue
+        if isinstance(new, torch.Tensor):
+            if new.shape != old.shape or new.dtype != old.dtype:
+                raise ValueError(f"refill: {field.name} is {tuple(new.shape)} {new.dtype}, the "
+                                 f"kept state's {tuple(old.shape)} {old.dtype}")
+            old.copy_(new)
+        else:
+            setattr(into, field.name, new)
+    return into

@@ -28,11 +28,16 @@ is retried ``max_retries`` times and then recorded as ``{"uid", "error":
 "<Type>: <message>"}`` for each of its meshes, as JAX
 ``runtime/pipeline.py:165-181`` does: a folder run goes on past it. A
 caller that must not pass a fault (``chip_smoke.py``) treats any record
-with an ``"error"`` key as a failure.
+with an ``"error"`` key as a failure. ``run(resume=True)`` (``--resume``)
+skips a sample whose OBJ exists, ``run(export=False)`` writes none,
+``self.timings`` gathers every run's records (the skipped ones too) and
+``write_metrics`` writes records one JSON object a line
+(``--metrics_out``), as JAX's ``run`` and ``write_metrics`` do.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from typing import Iterable, List, Optional, Sequence
@@ -93,12 +98,14 @@ class InferencePipeline:
     def __init__(self, model: ma.MeshAnything, cfg: MeshAnythingConfig, *,
                  batch_size: int = 1, bucket: int = 512, attn: str = "auto",
                  lookahead: "int | str" = 0, wq: bool = False,
-                 timer: PhaseTimer | None = None, graph: bool = True):
+                 timer: PhaseTimer | None = None, graph: bool = True,
+                 aot_dir: Optional[str] = None):
         self.runner = PhaseRunner(model, cfg, bucket=bucket, attn=attn, lookahead=lookahead,
-                                  wq=wq, graph=graph)
+                                  wq=wq, graph=graph, aot_dir=aot_dir)
         self.batch_size = batch_size
         self.timer = timer
         self.device = self.runner.device
+        self.timings: List[dict] = []
 
     @property
     def graph(self) -> bool:
@@ -119,14 +126,25 @@ class InferencePipeline:
                                prompt_ids=prompt_ids, timer=self.timer)
 
     def run(self, samples: Iterable[Sample], out_dir: str, *, sampling: bool = False,
-            seed: int = 0, max_retries: int = 1,
+            seed: int = 0, export: bool = True, resume: bool = False, max_retries: int = 1,
             prompt_tokens: Optional[np.ndarray] = None) -> List[dict]:
         """Generate every sample, a padded batch at a time, and write
-        ``<uid>_gen.obj`` for each. ``prompt_tokens`` (P,): a completion
-        prefix in stream order ([bos, face tokens...]) that every sample
-        continues (``--complete_from``)."""
+        ``<uid>_gen.obj`` for each (``export``). ``resume`` skips a sample
+        whose OBJ exists (recorded in ``self.timings`` as {"uid",
+        "skipped": True, "obj_path"}, not returned). ``prompt_tokens``
+        (P,): a completion prefix in stream order ([bos, face tokens...])
+        that every sample continues (``--complete_from``)."""
         os.makedirs(out_dir, exist_ok=True)
         samples = list(samples)
+        if resume:
+            remaining = []
+            for s in samples:
+                path = os.path.join(out_dir, f"{s.uid}_gen.obj")
+                if os.path.exists(path):
+                    self.timings.append({"uid": s.uid, "skipped": True, "obj_path": path})
+                else:
+                    remaining.append(s)
+            samples = remaining
         results = []
         bs = self.batch_size
         for batch, start in enumerate(range(0, len(samples), bs)):
@@ -174,9 +192,18 @@ class InferencePipeline:
                 for key in ("window_forwards", "mean_accept", "window_trace"):
                     if key in out:
                         rec[key] = out[key]
-                path = os.path.join(out_dir, f"{s.uid}_gen.obj")
-                rec["faces_final"] = len(postprocess_faces(coords[i], path).faces)
-                rec["obj_path"] = path
+                if export:
+                    path = os.path.join(out_dir, f"{s.uid}_gen.obj")
+                    rec["faces_final"] = len(postprocess_faces(coords[i], path).faces)
+                    rec["obj_path"] = path
                 rec["post_time_s"] = time.perf_counter() - t1
                 results.append(rec)
+        self.timings.extend(results)
         return results
+
+
+def write_metrics(results: List[dict], path: str) -> None:
+    """The records, one JSON object a line (``--metrics_out``)."""
+    with open(path, "w") as fh:
+        for r in results:
+            fh.write(json.dumps(r) + "\n")

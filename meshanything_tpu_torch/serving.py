@@ -1,8 +1,9 @@
 """Serving layer of the PyTorch port: the app.py equivalent (reference
 app.py:1-270; the port of ``meshanything_tpu/serving.py``).
 
-    python -m meshanything_tpu_torch.serving --random_weights [--fast] \
-        [--batchsize_per_gpu 4] [--device cuda]
+    python -m meshanything_tpu_torch.serving [--pretrained_weights W] [--fast] \
+        [--batchsize_per_gpu 4] [--device cuda] [--aot_dir D] [--precompile]
+    python app_torch.py ...                     # the same
 
 Two frontends over one ServingEngine:
   * gradio Blocks UI when gradio is installed — same surface as the
@@ -35,9 +36,12 @@ The device side is one ``runtime/phases.py::PhaseRunner``, which runs one
 generation at a time (its lock serialises the device work of the HTTP
 handler threads and of the micro-batcher's worker); with ``batching`` a
 ``runtime/batching.py::BatchingRunner`` coalesces concurrent greedy
-requests into padded batched decodes. Each request (each batch) captures
-its own decode graph on a card: its seconds are reported as
-``capture_s`` beside ``latency_s``.
+requests into padded batched decodes. On a card the runner keeps each
+batch size's decode graphs across requests: the first request of a batch
+size (or ``--precompile``, for every size the batcher pads to) captures
+them, and its seconds are reported as ``capture_s`` beside ``latency_s``
+(0 for the requests that replay them). ``--aot_dir`` is the store of the
+built kernel libraries (``runtime/aot.py``).
 """
 from __future__ import annotations
 
@@ -85,7 +89,8 @@ class ServingEngine:
         one padded batched decode of up to that many rows (padded to 1,
         2, 4 or ``batching``), keeping the per-request API. ``runner`` injects a
         PhaseRunner-shaped callable in place of the engine's own;
-        ``aot_dir`` raises (not ported yet)."""
+        ``aot_dir`` is the store of the built kernel libraries
+        (``runtime/aot.py``)."""
         from meshanything_tpu_torch.runtime.phases import PhaseRunner
 
         self.cfg = cfg
@@ -98,12 +103,20 @@ class ServingEngine:
         # the runner whose lock serialises the device work (a generator made on a
         # card while another thread captures a graph would spoil the capture)
         self._device_lock = getattr(runner, "lock", None) or contextlib.nullcontext()
+        self._device_runner = runner       # the PhaseRunner (or the injected one)
+        self.batch_sizes = (1,)
         if batching and batching > 1:
             from meshanything_tpu_torch.runtime.batching import BatchingRunner
 
-            sizes = sorted({s for s in (1, 2, 4, batching) if s <= batching})
-            runner = BatchingRunner(runner, batch_sizes=tuple(sizes))
+            self.batch_sizes = tuple(sorted({s for s in (1, 2, 4, batching) if s <= batching}))
+            runner = BatchingRunner(runner, batch_sizes=self.batch_sizes)
         self._runner = runner
+
+    def precompile(self) -> list:
+        """The device runner's ``precompile`` for every batch size the
+        engine runs (greedy; a sampled request runs at batch 1) -> the
+        reports."""
+        return [self._device_runner.precompile(b) for b in self.batch_sizes]
 
     def close(self) -> None:
         """Release the engine's runner (stops the micro-batcher's worker
@@ -532,7 +545,9 @@ def main(argv=None):
         load_params,
         resolve_device,
     )
+    from meshanything_tpu_torch.runtime.compile_cache import enable as enable_compile_cache
 
+    enable_compile_cache()
     args = get_args(argv)
     check_ported(args)
     device = resolve_device(args.device)
@@ -541,8 +556,13 @@ def main(argv=None):
     # --fast resolves to wq + pallas_int8 + lookahead 8 in get_args
     # (cli.apply_fast_preset): the single-request serving preset
     engine = ServingEngine(model, cfg, bucket=args.bucket, attn=args.attn,
-                           lookahead=args.lookahead, wq=args.wq,
+                           lookahead=args.lookahead, wq=args.wq, aot_dir=args.aot_dir,
                            batching=args.batchsize_per_gpu)
+    if args.precompile:
+        t0 = time.time()
+        reports = engine.precompile()
+        print(f"precompile done in {time.time() - t0:.1f}s: batch sizes {engine.batch_sizes}, "
+              f"{sum(r['graph_captures'] for r in reports)} decode graphs captured")
     try:
         import gradio  # noqa: F401
     except ImportError:

@@ -9,8 +9,10 @@ TPU compiler's buffer assignment; here the card's allocator is read).
 
 The full 350M model on seeded random bf16 weights runs encode, the
 prefill into a full-length cache, 70 decode steps (or 12 window forwards
-with ``window``) and detok, as ``InferencePipeline.generate`` orders them
-(the cache dropped before detok). After each phase it reads the peak of
+with ``window``) and detok, as ``InferencePipeline.generate`` orders them:
+the runner keeps the decode state (the cache, and the int8 matrices with
+``--wq``) for the next request of the batch size, so they stay live
+through detok. After each phase it reads the peak of
 ``torch.cuda.max_memory_allocated`` above the weights. The peaks come
 with the allocations, not with the steps, so a short decode shows them.
 One JSON line: the four peaks, ``check_memory_budget``'s estimate above
@@ -32,7 +34,9 @@ import sys
 def phase_peaks(model, cfg, batch: int, attn: str, window: int = 0, wq: bool = False) -> dict:
     """Run encode, prefill, a short decode and detok of ``batch`` rows on
     the card that holds ``model`` -> the record ``main`` prints (without
-    the card's name). Raises where the estimate is below a peak."""
+    the card's name). The decode state and int8 matrices stay live
+    through detok, as the runner keeps them. Raises where the estimate is
+    below a peak."""
     import torch
 
     from meshanything_tpu_torch.models import lookahead as la
@@ -68,30 +72,31 @@ def phase_peaks(model, cfg, batch: int, attn: str, window: int = 0, wq: bool = F
         state = la.lookahead_segment(model.opt, cfg.opt, state, max_new_tokens=gl,
                                      wq_layers=wq_layers, until_iters=12, sampling=False)
         tokens = state.tokens[:, :gl].clone()
-        del wq_layers
     else:
         state = opt.init_decode_state(model.opt, cfg.opt, cond, max_new_tokens=gl, bucket=512,
                                       generator=None, attn=attn, sampling=False)
         phase_done("prefill")
         cache = torch.cuda.memory_allocated(device) - base
+        wq_layers = quantize_opt_layers(model.opt.layers) if wq else None
         state = opt.decode_loop(model.opt, cfg.opt, state, max_new_tokens=70, wq=wq,
-                                sampling=False)
-        tokens = state.tokens
+                                sampling=False, wq_layers=wq_layers)
+        tokens = state.tokens.clone()
     phase_done("decode")
-    del state
-    torch.cuda.reset_peak_memory_stats(device)   # the cache is gone before detok allocates
+    torch.cuda.reset_peak_memory_stats(device)   # the decode's transients are gone
+    kept = torch.cuda.memory_allocated(device) - base     # the kept state through detok
     ma.detokenize(model, cfg, tokens, point_feature)
     phase_done("detok")
 
     params = param_tree_bytes(model)
     estimate = check_memory_budget(cfg, batch, 512, attn, param_bytes=params, device=device,
-                                   extra_tokens=window, wq=wq) - params
+                                   extra_tokens=window, wq=wq, keep=True) - params
     record = {"tool": "memory_probe", "batch": batch, "attn": attn, "window": window,
               "wq": wq, "param_bytes": params, "peak_bytes_above_weights": peaks,
               "estimate_bytes_above_weights": estimate,
               "estimate_over_peak": estimate / max(peaks.values()),
-              # encode and detok scale with the batch alone
-              "encode_detok_bytes_per_row": max(peaks["encode"], peaks["detok"]) / batch}
+              "kept_through_detok_bytes": kept,
+              # encode and detok (above what is kept) scale with the batch alone
+              "encode_detok_bytes_per_row": max(peaks["encode"], peaks["detok"] - kept) / batch}
     if attn in ("pallas_int8", "pallas_int4"):
         # what the prefill held at its peak beyond what it left behind (the cache)
         compact = 2 * cfg.opt.num_layers * batch * cfg.cond_length * cfg.opt.hidden_size

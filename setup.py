@@ -11,8 +11,9 @@ setup(
                                     "meshanything_tpu_torch", "meshanything_tpu_torch.*"]),
     package_data={"meshanything_tpu.native": ["*.cpp", "*.sh", "*.so"],
                   "meshanything_tpu": ["data/*.json"],
-                  # CUDA sources of the PyTorch port, compiled with nvcc at first use
-                  "meshanything_tpu_torch": ["csrc/*.cu"]},
+                  # sources of the PyTorch port, compiled at first use: the CUDA kernels
+                  # and the headers they include (nvcc), the native geometry (g++)
+                  "meshanything_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -2,7 +2,10 @@
 JAX package's: the reference flags reach the config as JAX's
 ``build_config`` sets them, and a batch whose generation raises is retried
 and then recorded as ``{"uid", "error"}`` as JAX's ``InferencePipeline.run``
-records it."""
+records it; ``collect_inputs``, ``--precompile`` without input,
+``--resume``, ``export`` and ``--metrics_out`` as JAX's."""
+import os
+
 import numpy as np
 import pytest
 
@@ -151,3 +154,109 @@ def test_mc_and_complete_from_write_the_jax_clis_obj_bytes(tmp_path, monkeypatch
     assert open(res[0]["obj_path"], "rb").read() == open(jres[0]["obj_path"], "rb").read()
     if kind == "complete_from":
         assert res[0]["decode_steps"] == cfg.generate_length - 1 - (1 + 2 * 9)
+
+
+@pytest.mark.parametrize("input_type", ["pc_normal", "mesh"])
+def test_collect_inputs_filters_like_jax(tmp_path, input_type):
+    """A mixed folder (tests/test_cli.py's): pc_normal takes the .npy
+    files, mesh the .npy .obj .ply .stl .off .glb files, as JAX's
+    ``collect_inputs``."""
+    from meshanything_tpu.cli import collect_inputs as jax_collect_inputs
+
+    for name in ("a.npy", "b.obj", "c.ply", "d.txt", "e.stl", "f.off", "g.glb"):
+        (tmp_path / name).write_bytes(b"x")
+    argv = ["--input_dir", str(tmp_path), "--input_type", input_type]
+    mine = cli.collect_inputs(cli.get_args(argv))
+    assert mine == jax_collect_inputs(jax_get_args(argv))
+    assert [p.rsplit("/", 1)[1] for p in mine] == (
+        ["a.npy"] if input_type == "pc_normal"
+        else ["a.npy", "b.obj", "c.ply", "e.stl", "f.off", "g.glb"])
+
+
+@pytest.mark.parametrize("precompile", [False, True])
+def test_collect_inputs_without_input(precompile):
+    """No input: an error, unless --precompile (build and capture only)."""
+    from meshanything_tpu.cli import collect_inputs as jax_collect_inputs
+
+    argv = ["--precompile"] if precompile else []
+    if precompile:
+        assert cli.collect_inputs(cli.get_args(argv)) == jax_collect_inputs(
+            jax_get_args(argv)) == []
+    else:
+        for collect, args in ((cli.collect_inputs, cli.get_args(argv)),
+                              (jax_collect_inputs, jax_get_args(argv))):
+            with pytest.raises(ValueError, match="input_dir or input_path"):
+                collect(args)
+
+
+def test_precompile_without_input_returns_no_records(tmp_path, monkeypatch):
+    """``--precompile`` with no input builds (nothing on the CPU) and
+    returns [] before any generation."""
+    cfg = small_test_config(n_max_triangles=4)
+    monkeypatch.setattr(cli, "build_config", lambda args: cfg)
+    assert cli.main(["--precompile", "--random_weights", "--device", "cpu", "--out_dir",
+                     str(tmp_path)]) == []
+
+
+JAX_RECORD_KEYS = ("uid", "faces_generated", "faces_final")
+
+
+@pytest.mark.parametrize("export", [True, False])
+def test_resume_and_metrics_match_jax(pipelines, tmp_path, export):
+    """``run(resume=True)`` skips the sample whose OBJ exists and records it
+    in ``timings`` as JAX's run does; the other sample's record holds
+    JAX's fields with JAX's values and the same OBJ bytes;
+    ``export=False`` writes none; ``write_metrics`` writes one JSON object
+    a line."""
+    import json
+
+    from meshanything_tpu.runtime.pipeline import write_metrics as jax_write_metrics
+    from meshanything_tpu_torch.runtime.pipeline import write_metrics
+
+    jpipe, jsamples, pipe, samples = pipelines
+    jpipe.timings, pipe.timings = [], []
+    dirs = {"jax": tmp_path / "jax", "port": tmp_path / "port"}
+    for which, (p, s) in {"jax": (jpipe, jsamples), "port": (pipe, samples)}.items():
+        p.run(s, str(dirs[which]), seed=0)
+        os.remove(dirs[which] / "b_gen.obj")
+        p.timings = []
+    jres = jpipe.run(jsamples, str(dirs["jax"]), seed=0, resume=True, export=export)
+    res = pipe.run(samples, str(dirs["port"]), seed=0, resume=True, export=export)
+    for t, d in ((jpipe.timings, dirs["jax"]), (pipe.timings, dirs["port"])):
+        assert t[0] == {"uid": "a", "skipped": True, "obj_path": str(d / "a_gen.obj")}
+    assert [r["uid"] for r in res] == [r["uid"] for r in jres] == ["b"]
+    assert pipe.timings[1:] == res
+    keys = JAX_RECORD_KEYS if export else JAX_RECORD_KEYS[:2]
+    assert {k: res[0][k] for k in keys} == {k: jres[0][k] for k in keys}
+    assert os.path.exists(dirs["port"] / "b_gen.obj") == export
+    if export:
+        assert (open(res[0]["obj_path"], "rb").read()
+                == open(jres[0]["obj_path"], "rb").read())
+    else:
+        assert "obj_path" not in res[0] and "obj_path" not in jres[0]
+    write_metrics(pipe.timings, str(tmp_path / "m.jsonl"))
+    jax_write_metrics(jpipe.timings, str(tmp_path / "jm.jsonl"))
+    lines = [json.loads(ln) for ln in open(tmp_path / "m.jsonl")]
+    jlines = [json.loads(ln) for ln in open(tmp_path / "jm.jsonl")]
+    assert lines == json.loads(json.dumps(pipe.timings)) and len(lines) == len(jlines) == 2
+    assert set(jlines[1]) <= set(lines[1])
+
+
+def test_cli_metrics_out_writes_the_records(tmp_path, monkeypatch):
+    """``--metrics_out``: the CLI's records, one JSON object a line."""
+    import json
+
+    cfg = small_test_config(n_max_triangles=4)
+    rng = np.random.default_rng(8)
+    for name in ("a", "b"):
+        pc = rng.normal(size=(200, 6)) * 0.3
+        pc[:, 3:] /= np.linalg.norm(pc[:, 3:], axis=-1, keepdims=True)
+        np.save(tmp_path / f"{name}.npy", pc.astype(np.float32))
+    monkeypatch.setattr(cli, "build_config", lambda args: cfg)
+    metrics = tmp_path / "metrics.jsonl"
+    res = cli.main(["--input_dir", str(tmp_path), "--input_type", "pc_normal", "--random_weights",
+                    "--device", "cpu", "--dtype", "float32", "--bucket", "16", "--out_dir",
+                    str(tmp_path / "out"), "--metrics_out", str(metrics),
+                    "--batchsize_per_gpu", "2"])
+    assert [json.loads(ln) for ln in open(metrics)] == json.loads(json.dumps(res))
+    assert [r["uid"] for r in res] == ["a", "b"]

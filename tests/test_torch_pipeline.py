@@ -140,16 +140,36 @@ def test_cli_writes_the_jax_pipelines_obj_bytes(tmp_path, monkeypatch):
     assert open(res[0]["obj_path"], "rb").read() == open(jres[0]["obj_path"], "rb").read()
 
 
-@pytest.mark.parametrize("flags", [["--mc", "--pretrained_weights", "w.pth"],
-                                   ["--pretrained_weights", "w.pth"],
-                                   ["--attn", "xla"],
+@pytest.mark.parametrize("flags", [["--attn", "xla"],
                                    ["--fast", "--attn", "xla"],
-                                   ["--complete_from", "p.obj", "--attn", "xla"], []])
+                                   ["--complete_from", "p.obj", "--attn", "xla"],
+                                   ["--multihost"]])
 def test_cli_refuses_what_is_not_ported(flags):
-    args = cli.get_args(["--input_path", "x.npy", "--input_type", "pc_normal", *flags]
-                        + ([] if flags == [] else ["--random_weights"]))
+    args = cli.get_args(["--input_path", "x.npy", "--input_type", "pc_normal", *flags,
+                         "--random_weights"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.check_ported(args)
+
+
+@pytest.mark.parametrize("flags", [["--mc", "--pretrained_weights", "w.pth"],
+                                   ["--pretrained_weights", "w.pth"], []])
+def test_cli_missing_checkpoint_raises_jax_message(tmp_path, monkeypatch, flags):
+    """Without ``--random_weights`` the checkpoint is loaded: a missing
+    ``--pretrained_weights`` (or the default ``MeshAnything_350m.pth``)
+    raises JAX's ``FileNotFoundError``, word for word."""
+    from meshanything_tpu.cli import get_args as jax_get_args
+    from meshanything_tpu.cli import load_params as jax_load_params
+
+    monkeypatch.chdir(tmp_path)
+    argv = ["--input_path", "x.npy", "--input_type", "pc_normal", *flags]
+    args = cli.get_args(argv)
+    cli.check_ported(args)
+    with pytest.raises(FileNotFoundError) as mine:
+        cli.load_params(args, small_test_config(), torch.device("cpu"))
+    with pytest.raises(FileNotFoundError) as theirs:
+        jax_load_params(jax_get_args(argv), jax_small_config())
+    assert str(mine.value) == str(theirs.value)
+    assert repr(args.pretrained_weights) in str(mine.value)
 
 
 def test_cli_refuses_attn_megakernel_as_jax_does(capsys):
@@ -221,15 +241,17 @@ def test_cli_cuda_device_never_falls_back(monkeypatch):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with JAX made unimportable, and
-    nothing of the JAX package comes with it."""
+    """Every module of the port (runtime/aot.py, compile_cache.py and
+    checkpoint.py among them) and the root entries ``main_torch.py`` and
+    ``app_torch.py`` import with JAX made unimportable, and nothing of the
+    JAX package comes with them."""
     code = (
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
         "import meshanything_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, main_torch, app_torch\n"
         "bad = [k for k in sys.modules if k == 'meshanything_tpu' or k.startswith('meshanything_tpu.')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

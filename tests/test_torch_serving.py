@@ -95,13 +95,18 @@ def test_phase_runner_matches_jax(setup, case):
 
 
 def test_phase_runner_refuses_what_is_not_ported(setup):
+    """What the runner still refuses: the window loop over the megakernel
+    tier (JAX runs its XLA tier there), a bad window and, as JAX's runner,
+    an adaptive pair that is not (small, big). The ahead-of-time store and
+    precompile are ported (tests/test_torch_warm_start.py)."""
     _, _, cfg, model = setup
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        PhaseRunner(model, cfg, aot_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        PhaseRunner(model, cfg).precompile(1)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        PhaseRunner(model, cfg, attn="megakernel", lookahead=4)
     with pytest.raises(ValueError, match="window width or 'adaptive'"):
         PhaseRunner(model, cfg, lookahead=-1)
+    for pair in ((8, 8), (16, 8), (4,)):
+        with pytest.raises(ValueError, match=r"adaptive_windows must be \(small, big\)"):
+            PhaseRunner(model, cfg, lookahead="adaptive", adaptive_windows=pair)
 
 
 # ---------------------------------------------------------------------------
@@ -567,4 +572,4 @@ def test_serving_main_serves_http_without_gradio(setup, monkeypatch):
     runner = batcher._runner
     assert (runner.attn, runner.lookahead, runner.wq) == ("pallas_int8", 8, True)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        serving.main(["--random_weights", "--device", "cpu", "--pretrained_weights", "w.pth"])
+        serving.main(["--random_weights", "--device", "cpu", "--multihost"])
