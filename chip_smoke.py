@@ -81,12 +81,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
      (default at 4 GiB with `dual`, then `verify`), tools/pipe_compute_probe
      and tools/build_canary; each must launch its kernels and no other;
   8. the main path: the CLI at the full 350M width on seeded random bf16
-     weights: the exact tier twice (K1; the B=1 run cut to 200 faces, the
+     weights: the exact tier twice (K1; the B=1 run cut to 100 faces, the
      B=2 run to 400),
-     then F1 --fast (K4 int8 + W8A8; 400 faces),
-     F2 --attn pallas_int4 --lookahead adaptive (K4 int4; 400 faces), F3 --lookahead
-     8 (K4 bf16), F4 --attn pallas_int8 (K2) and F5 --attn pallas_int4
-     --wq (K3), and InferencePipeline(attn="megakernel") on the same two
+     then F1 --fast (K4 int8 + W8A8; 200 faces),
+     F2 --attn pallas_int4 --lookahead adaptive (K4 int4; 200 faces), F3 --lookahead
+     8 (K4 bf16), F4 --attn pallas_int8 (K2; 100 faces) and F5 --attn pallas_int4
+     --wq (K3; 50 faces), and InferencePipeline(attn="megakernel") on the same two
      inputs (M1 B=1, M2 B=2 cut to 400 faces; K5); the OBJs must parse
      and each run must launch exactly its kernel, 24 times per decode step
      or window forward (K5: once a decode step), and no other kernel, and
@@ -156,9 +156,27 @@ Phases, each printing JSON lines; any failure exits non-zero:
      sampled pair with one seed on one runner equals a fresh runner's and
      the second captures nothing; a --fast ServingEngine's second request
      captures nothing. K1 and the int8 K4 launch, no other kernel.
+  15. parallel (``parallel_phase``): K1 and the bf16 K4 at a tensor-parallel
+     rank's 8 and 4 heads against their plain versions; then, as processes
+     of their own on this card over gloo (``parallel/launch.py``,
+     ``tools/parallel_probe.py``), at the full 350M width: a (2, 1) data-
+     parallel generate in the exact tier, --fast, int8, int4 and the
+     megakernel (50 faces), each rank's rows bit-equal to B=1 runs alone;
+     a (1, 2) tensor-parallel eager decode (20 faces): first-step logits
+     within TP_LOGIT_RTOL, greedy and lookahead-8 agreement at least
+     TP_AGREEMENT_MIN, ms a step, all-reduce share; the (1, 2) sharded
+     trainer (B=2, 256 tokens, 3 steps): losses within TRAIN_LOSS_RTOL and
+     grad norms within TRAIN_GRAD_NORM_RTOL of one process's; the CLI with --multihost
+     under torchrun (two ranks, four inputs, 20 faces), OBJs byte-equal to
+     one process's. Each rank counts its launches; every kernel of the
+     path must have launched.
+  15a. parallel_nccl (``parallel_nccl_phase``): with two cards or more the
+     DP and TP passes of phase 15 again over NCCL, one rank a card, the TP
+     decode and lookahead captured as CUDA graphs, their tokens bit-equal to
+     the same rank's eager runs; with one card a line says it did not run.
 
 Before the last line it prints {"kernels": [...]} (K1-K5 and T1-T5, each
-with its launches on the main, checkpoint and serving paths and the train phase's decode, its time, its plain
+with its launches on the main, checkpoint, serving and parallel paths and the train phase's decode, its time, its plain
 version's, its byte or operation bound, its share of the measured roof
 and the library call's time where there is one) and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
@@ -1366,13 +1384,13 @@ def floors_and_budget(torch, runs: list, roof_gbs: float, card: str) -> None:
 
     by_name = {r["run"]: r for r in runs}
     full, cut = MeshAnythingConfig(dtype="bfloat16"), MeshAnythingConfig(dtype="bfloat16",
-                                                                         n_max_triangles=200)
+                                                                         n_max_triangles=100)
     emit("floor", roof_gbs=roof_gbs, decode_bytes=decode_bytes(full),
          exact_bf16_b1_s=exact_floor_seconds(full, roof_gbs, 1),
          exact_bf16_b16_s=exact_floor_seconds(full, roof_gbs, 16),
          int8_b16_s=exact_floor_seconds(full, roof_gbs, 16, int8=True),
-         exact_bf16_b1_200_faces_s=exact_floor_seconds(cut, roof_gbs, 1),
-         measured_exact_pc_200_faces_s=by_name["exact_pc"]["device_s_per_mesh"],
+         exact_bf16_b1_100_faces_s=exact_floor_seconds(cut, roof_gbs, 1),
+         measured_exact_pc_100_faces_s=by_name["exact_pc"]["device_s_per_mesh"],
          measured_m1_s=by_name["M1"]["device_s_per_mesh"], card=card)
 
     failures = []
@@ -2670,11 +2688,446 @@ def warm_start_phase(torch, wrappers: dict, load_obj, card: str) -> None:
     if failures:
         raise AssertionError(f"warm_start: {failures}")
 
+# Phase parallel: the ranks' depth cuts are tools/parallel_probe.py's DP_FACES,
+# TP_FACES and TRAIN (the widths stay the 350M model's)
+PARALLEL_CLI_FACES = 20
+LOCAL_HEADS = (8, 4)          # a tensor-parallel rank's heads at tp = 2 and 4
+# The TP=2 first decode step against one process's eager step, both bf16: the
+# rank rounds each row-parallel partial product to bf16 before the f32 sum
+# (one more rounding than the single matmul, two a layer, 48 in the decoder
+# and 50 in the perceiver); bf16's step is 2^-8 of a value, and ~100 such
+# roundings that add like a random walk move a logit by ~10 steps of 2^-8 of
+# its scale (~4%). Held at 5% of the largest |logit|; a wrong shard (a head
+# of another rank, a bias added twice) moves it by O(1).
+TP_LOGIT_RTOL = 5e-2
+# The TP=2 greedy and lookahead-8 streams against one process's eager
+# streams: both are deterministic on one build and card (a sum of two ranks
+# does not depend on their order) and agreed 1.000 on gloo and on NCCL. The
+# bf16 roundings above can flip a near-tie argmax late in a stream (a flip
+# at step k leaves about k/181 agreement); a lost or stale all-reduce spoils
+# every step after it and the stream leaves the reference within a few
+# tokens. Held at 0.9.
+TP_AGREEMENT_MIN = 0.9
+# The sharded trainer against one process's, both f32 with TF32 matmuls on
+# the card (2^-11 of a product's inputs): the split matmuls add their
+# partial sums in another order and the f32 all-reduce adds one more sum, so
+# the losses differ by a few TF32 steps of the loss after three adam steps
+# (each update of size lr, its sign flipped only on grads at rounding level).
+# Held at 2e-3 relative, four TF32 steps; a rank that misses the other's
+# partial sums (an all-reduce lost in the forward, or in copy_to_model's
+# backward) moves the loss by O(1) from that step on.
+TRAIN_LOSS_RTOL = 2e-3
+# A uniform scale of the gradients (a sum counted twice, a mean where the
+# sum belongs) barely moves the loss: Adam's step does not depend on it
+# (but for eps) and the clip normalises it. The global norm before the clip
+# shows it at once (2x, 0.5x), so the grad norms are held too: TF32 in the
+# backward put them 0.4-1.2% apart in three steps (the CPU test holds them
+# to JAX's in f32 at 1e-4). Held at 5%.
+TRAIN_GRAD_NORM_RTOL = 5e-2
+
+
+def check_local_heads(torch, da) -> dict:
+    """Phase parallel, part 1: K1 and the bf16 tensor-core K4 at the head
+    counts of a tensor-parallel rank (8 at tp = 2, 4 at tp = 4; cache rows
+    of 1,024 and 512 bytes), head width 64, B 1 and 16: K1 at cur_len
+    7459, K4 at W=8 and base 7450 - b, each against its plain version with
+    the checks' tolerances and NaN past the live rows; returns the largest
+    errors."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst, failures = {"k1": 0.0, "k4_window": 0.0}, []
+    assert da.mq_kernel_for(torch.bfloat16, D, torch.bfloat16) == "window"
+    for heads in LOCAL_HEADS:
+        for batch in (1, 16):
+            kv = torch.full((2, L, batch, S, heads * D), float("nan"), dtype=torch.bfloat16,
+                            device="cuda")
+            kv[:, LAYER] = torch.randn((2, batch, S, heads * D), generator=gen, device="cuda",
+                                       dtype=torch.bfloat16)
+            q = torch.randn((batch, heads, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+            cur = CUR_LENS[0]
+            out = da.decode_attention(q, kv, LAYER, cur)
+            kv[:, LAYER, :, cur:] = float("nan")
+            poisoned = da.decode_attention(q, kv, LAYER, cur)
+            plain = da.decode_attention_reference(q, kv, LAYER, cur)
+            torch.cuda.synchronize()
+            err, within = _close(out, plain, TOL["bfloat16"])
+            ok1 = within and bool(torch.isfinite(out).all()) and bool(torch.equal(out, poisoned))
+
+            kv[:, LAYER] = torch.randn((2, batch, S, heads * D), generator=gen, device="cuda",
+                                       dtype=torch.bfloat16)
+            w, base0 = 8, BASES[0]
+            q4 = torch.randn((batch, w, heads, D), generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+            win = torch.randn((2, batch, w, heads * D), generator=gen, device="cuda",
+                              dtype=torch.bfloat16)
+            base = (base0 - torch.arange(batch, device="cuda")).int()
+            args = (q4, kv, None, LAYER, base, win[0], win[1])
+            out4 = da.decode_attention_mq(*args)
+            for b, n in enumerate(base.tolist()):
+                kv[:, LAYER, b, n:] = float("nan")
+            poisoned4 = da.decode_attention_mq(*args)
+            plain4 = da.decode_attention_mq_reference(*args, n_rows=base0)
+            torch.cuda.synchronize()
+            err4, within4, held = _held(out4, plain4, False, WINDOW_RTOL)
+            ok4 = (within4 and bool(torch.isfinite(out4).all())
+                   and bool(torch.equal(out4, poisoned4)))
+            worst["k1"] = max(worst["k1"], err)
+            worst["k4_window"] = max(worst["k4_window"], err4)
+            emit("parallel_local_heads", heads=heads, batch=batch, row_bytes=heads * D * 2,
+                 k1={"cur_len": cur, "max_abs_err": err, "atol": TOL["bfloat16"],
+                     "rtol": TOL["bfloat16"], "ok": ok1},
+                 k4_window={"window": w, "base_row0": base0, "max_abs_err": err4, **held,
+                            "ok": ok4})
+            if not (ok1 and ok4):
+                failures.append((heads, batch, ok1, ok4))
+            del kv
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"K1 / the bf16 K4 at a rank's head count disagree: {failures}")
+    return worst
+
+
+def _parallel_inputs(n: int, seed: int):
+    """n seeded ellipsoid clouds of 8192 points with normals, each scaled
+    and turned its own way: (N, 6) float32 arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    clouds = []
+    for _ in range(n):
+        axes = rng.uniform(0.3, 1.0, 3)
+        turn, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        u = rng.normal(size=(8192, 3))
+        u /= np.linalg.norm(u, axis=-1, keepdims=True)
+        normals = u / axes
+        normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+        clouds.append(np.concatenate([(u * axes) @ turn, normals @ turn], -1).astype(np.float32))
+    return clouds
+
+
+def _run_group(argv: list, timeout: float) -> subprocess.CompletedProcess:
+    """A command in a process group of its own (torchrun and its ranks),
+    the whole group killed at the time limit."""
+    import signal
+
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"{argv[:6]}... timed out after {timeout} s: {err[-3000:]}")
+    return subprocess.CompletedProcess(argv, proc.returncode, out, err)
+
+
+def _sum_counts(records: list) -> dict:
+    return {k: sum(r["counts"][k] for r in records) for k in records[0]["counts"]}
+
+
+def _references(torch, pp, pc, graph: bool) -> dict:
+    """This process's runs that the ranks are held to, on the ranks'
+    seeded weights (one model: the weights do not depend on the depth):
+    each input's B=1 run in every tier of ``pp.TIERS`` at DP_FACES; at
+    TP_FACES the first input's first decode step, eager decode, replayed
+    decode (with ``graph``: the TP replays' comparison, capture included
+    in both) and eager lookahead 8."""
+    dp_cfg, tp_cfg = pp.config(pp.DP_FACES), pp.config(pp.TP_FACES)
+    model = pp.model_for(dp_cfg, pc.device)
+    row = pc[:1]
+    ref = {"dp": [pp.run_tiers(model, dp_cfg, pc[i:i + 1]) for i in range(2)],
+           "first": pp.first_step_logits(model, tp_cfg, row),
+           "decode": pp.timed_decode(model, tp_cfg, row),
+           "replayed": pp.timed_decode(model, tp_cfg, row, graph=True) if graph else None,
+           "lookahead": pp.lookahead_tokens(model, tp_cfg, row)}
+    del model
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _rank_results(torch, probe: list, tasks: tuple, tmp: str, backend: str, *extra: str,
+                  timeout: float = 600.0) -> tuple:
+    """Two ranks of ``tools/parallel_probe.py`` running ``tasks`` in order,
+    one process a rank, over ``backend`` -> ({task: each rank's results},
+    the wall seconds)."""
+    from meshanything_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    run_ranks([*probe, ",".join(tasks), tmp, "--backend", backend, *extra], 2, timeout=timeout,
+              log_dir=tmp)
+    wall = time.perf_counter() - t0
+    return {task: [torch.load(os.path.join(tmp, f"{task}_rank{r}.pt"), weights_only=False)
+                   for r in range(2)] for task in tasks}, wall
+
+
+def _check_dp(torch, pp, ref: dict, dp: list, backend: str, failures: list) -> dict:
+    """generate over a (2, 1) mesh in every tier of ``pp.TIERS``, one input
+    a rank, the decode replayed: each rank's gathered rows bit-equal to
+    this process's B=1 run of each input. Returns the ranks' launches."""
+    for tier in pp.TIERS:
+        equal = [bool(torch.equal(r["tiers"][tier][0][i], ref["dp"][i][tier][0][0]))
+                 for r in dp for i in range(2)]
+        emit("parallel_dp", backend=backend, tier=tier, faces=pp.DP_FACES,
+             decode_steps=pp.config(pp.DP_FACES).generate_length - 1, rows_bit_equal=equal,
+             rank_seconds=[r["tiers"][tier][1] for r in dp],
+             alone_seconds=[a[tier][1] for a in ref["dp"]], devices=[r["device"] for r in dp])
+        if not all(equal):
+            failures.append((backend, "dp", tier))
+    counts = _sum_counts(dp)
+    emit("parallel_dp_launches", backend=backend, launches=counts,
+         rank_task_s=[r["task_s"] for r in dp])
+    for key in ("k1", "k2", "k3", "k4_quant_window", "k5"):
+        if counts[key] == 0:
+            failures.append((backend, "dp launched no", key))
+    return counts
+
+
+def _check_tp(torch, pp, ref: dict, tp: list, backend: str, graph: bool, failures: list,
+              card: str) -> dict:
+    """A (1, 2) mesh, exact tier, TP_FACES: the first decode step's logits
+    within TP_LOGIT_RTOL of the largest of this process's eager step, the
+    prefill's token equal, the greedy agreement of the decode (replayed
+    with ``graph``, else eager) and of lookahead 8 with this process's
+    eager runs at least TP_AGREEMENT_MIN; with ``graph`` the replayed
+    tokens bit-equal to the same rank's eager runs (the same kernels and
+    sums: a capture that replays a stale or missing all-reduce differs).
+    ms a step beside this process's (eager, and with ``graph`` replayed);
+    without ``graph`` the share of a step inside all-reduce (a clocked
+    run). Returns the ranks' launches."""
+    ref_token, ref_logits = ref["first"]
+    alone, replayed = ref["decode"], ref["replayed"]
+    scale = float(ref_logits.abs().max())
+    for r in tp:
+        err = float((r["first_logits"] - ref_logits).abs().max())
+        d = r["decode"]
+        greedy = float((d["tokens"] == alone["tokens"]).float().mean())
+        lookahead = float((r["lookahead"] == ref["lookahead"]).float().mean())
+        checks = {"logits": err <= TP_LOGIT_RTOL * scale
+                  and bool(torch.isfinite(r["first_logits"]).all()),
+                  "prefill_token_equal": bool(torch.equal(r["prefill_token"], ref_token)),
+                  "greedy_agreement": greedy >= TP_AGREEMENT_MIN,
+                  "lookahead8_agreement": lookahead >= TP_AGREEMENT_MIN}
+        if graph:
+            checks["replayed_decode_equals_eager"] = bool(torch.equal(d["tokens"],
+                                                                      r["decode_eager"]))
+            checks["replayed_lookahead_equals_eager"] = bool(torch.equal(r["lookahead"],
+                                                                         r["lookahead_eager"]))
+        clocked = {}
+        if "clocked" in r:
+            c = r["clocked"]
+            clocked = {"clocked_ms_a_step": c["seconds"] / c["steps"] * 1e3,
+                       "allreduce_share_clocked": c["allreduce_s"] / c["seconds"],
+                       "allreduce_calls_a_step": c["allreduce_calls"] / c["steps"]}
+        emit("parallel_tp", backend=backend, graph=graph, rank=r["rank"], device=r["device"],
+             faces=pp.TP_FACES, decode_steps=d["steps"], first_logits_max_abs_err=err,
+             largest_logit=scale, rtol_of_largest=TP_LOGIT_RTOL, greedy_agreement=greedy,
+             lookahead8_agreement=lookahead, agreement_min=TP_AGREEMENT_MIN, checks=checks,
+             ok=all(checks.values()), ms_a_step=d["seconds"] / d["steps"] * 1e3,
+             alone_eager_ms_a_step=alone["seconds"] / alone["steps"] * 1e3,
+             alone_replayed_ms_a_step=(replayed["seconds"] / replayed["steps"] * 1e3
+                                       if replayed else None), **clocked, card=card)
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            failures.append((backend, "tp", r["rank"], failed, err, greedy, lookahead))
+    counts = _sum_counts(tp)
+    emit("parallel_tp_launches", backend=backend, launches=counts,
+         rank_task_s=[r["task_s"] for r in tp])
+    for key in ("k1", "k4_window") + (("graph_captures", "graph_replays") if graph else ()):
+        if counts[key] == 0:
+            failures.append((backend, "tp launched no", key))
+    return counts
+
+
+def _train_reference(torch, pp, device) -> dict:
+    """One process's trainer on the ranks' weights and batches."""
+    from meshanything_tpu_torch.training.train import make_optimizer, make_train_step
+
+    cfg = pp.config(pp.TRAIN["faces"])
+    state, step_fn = make_train_step(cfg, pp.model_for(cfg, device, 0, torch.float32),
+                                     make_optimizer(1e-3, steps=100))
+    out = pp.train_run(state, step_fn, pp.train_batches(cfg), device)
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_train(pp, alone: dict, train: list, failures: list, card: str) -> None:
+    """The (1, 2) sharded trainer: losses within TRAIN_LOSS_RTOL and grad
+    norms within TRAIN_GRAD_NORM_RTOL of one process's, step by step."""
+    def rel(ours, theirs):
+        return [abs(a - b) / abs(b) for a, b in zip(ours, theirs)]
+
+    for r in train:
+        t = r["train"]
+        loss_rel, norm_rel = rel(t["loss"], alone["loss"]), rel(t["grad_norm"], alone["grad_norm"])
+        ok = max(loss_rel) <= TRAIN_LOSS_RTOL and max(norm_rel) <= TRAIN_GRAD_NORM_RTOL
+        emit("parallel_train", rank=r["rank"], mesh="dp1 x tp2", **pp.TRAIN,
+             loss=t["loss"], alone_loss=alone["loss"], loss_rel_diff=loss_rel,
+             rtol=TRAIN_LOSS_RTOL, grad_norm=t["grad_norm"], alone_grad_norm=alone["grad_norm"],
+             grad_norm_rel_diff=norm_rel, grad_norm_rtol=TRAIN_GRAD_NORM_RTOL, ok=ok,
+             ms=t["ms"], alone_ms=alone["ms"], peak_bytes=t["peak_bytes"],
+             task_s=r["task_s"], card=card)
+        if not ok:
+            failures.append(("train", r["rank"], max(loss_rel), max(norm_rel)))
+
+
+def _dp_inputs(tmp: str):
+    """Two of ``_parallel_inputs``' clouds, normalized as the CLI does,
+    saved for the ranks as ``inputs.npy``: (the four clouds, the two on
+    the card)."""
+    import numpy as np
+    import torch
+
+    from meshanything_tpu_torch.geometry import normalize_pc_cli
+
+    clouds = _parallel_inputs(4, seed=7)
+    pcs = np.stack([normalize_pc_cli(c[:4096]) for c in clouds[:2]]).astype(np.float32)
+    np.save(os.path.join(tmp, "inputs.npy"), pcs)
+    return clouds, torch.from_numpy(pcs).to("cuda")
+
+
+def parallel_phase(torch, da, cli, load_obj, card: str) -> tuple:
+    """Phase parallel (``meshanything_tpu_torch/parallel/``): the data- and
+    tensor-parallel paths at the full 350M width on seeded random bf16
+    weights, their ranks started on this card as processes of their own
+    over gloo (``parallel/launch.py``; two ranks on one card need gloo,
+    which captures no collective), each through
+    ``tools/parallel_probe.py`` with the counts set to 0 before and read
+    after in the rank:
+
+    1. K1 and the bf16 K4 at a rank's head counts (``check_local_heads``);
+    then this process's references (``_references``, ``_train_reference``)
+    and one start of two ranks running the probe's dp, tp and train in turn;
+    2. dp (``_check_dp``): ``generate`` over a (2, 1) mesh, one input a
+       rank, 50 faces, in the exact tier (graph replays), ``--fast``, the
+       int8 and int4 caches and the megakernel: each rank's gathered rows
+       bit-equal to this process's B=1 run of each input; a rank's seconds
+       a tier;
+    3. tp (``_check_tp``): a (1, 2) mesh, exact tier, eager, 20 faces: the
+       first decode step's logits within TP_LOGIT_RTOL of the largest of
+       one process's eager step, the prefill's token equal, the greedy
+       agreement of the decode and of eager lookahead 8 (the bf16 K4 over
+       8 heads) at least TP_AGREEMENT_MIN; ms a step, and the share of a
+       step inside all-reduce from a second, clocked decode of
+       ``tools/parallel_probe.py::CLOCKED_STEPS`` steps (the clock
+       synchronises the card at each call, so its steps are slower);
+    4. train (``_check_train``): ``make_sharded_train_step`` over (1, 2),
+       f32 masters, B=2, 256 tokens, 3 steps: losses within
+       TRAIN_LOSS_RTOL and grad norms within TRAIN_GRAD_NORM_RTOL of one
+       process's trainer on the same batches; ms a step;
+    5. the CLI with ``--multihost`` under torchrun, two ranks, four
+       inputs, 20 faces: the union of the OBJs complete and byte-equal to
+       this process's CLI run, rank 1's records in ``.1``.
+
+    The NCCL passes are phase ``parallel_nccl``. A failing rank fails the
+    phase. Returns (the ranks' launches for the ``kernels`` line, the
+    largest errors of part 1)."""
+    import numpy as np
+
+    from meshanything_tpu_torch.tools import parallel_probe as pp
+
+    device = torch.device("cuda")
+    worst = check_local_heads(torch, da)
+    probe = [sys.executable, "-m", "meshanything_tpu_torch.tools.parallel_probe"]
+    failures, launches = [], {}
+    t_phase = time.perf_counter()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clouds, pc = _dp_inputs(tmp)
+        ref = _references(torch, pp, pc, graph=False)
+        alone_train = _train_reference(torch, pp, device)
+        ranks, wall = _rank_results(torch, probe, pp.TASKS, tmp, "gloo")
+        emit("parallel_ranks", backend="gloo", tasks=list(pp.TASKS), wall_s=wall)
+        launches["dp"] = _check_dp(torch, pp, ref, ranks["dp"], "gloo", failures)
+        launches["tp"] = _check_tp(torch, pp, ref, ranks["tp"], "gloo", False, failures, card)
+        _check_train(pp, alone_train, ranks["train"], failures, card)
+
+        # 5. --multihost under torchrun against one process's CLI
+        folder = os.path.join(tmp, "cli_in")
+        os.makedirs(folder)
+        for i, c in enumerate(clouds):
+            np.save(os.path.join(folder, f"shape{i}.npy"), c)
+        common = ["--input_dir", folder, "--input_type", "pc_normal", "--random_weights",
+                  "--seed", "0", "--n_max_triangles", str(PARALLEL_CLI_FACES), "--device", "cuda"]
+        t0 = time.perf_counter()
+        single = cli.main([*common, "--out_dir", os.path.join(tmp, "single")])
+        single_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        done = _run_group([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "2", *probe[1:], "cli", tmp, "--", "--multihost",
+                           *common, "--out_dir", os.path.join(tmp, "multi"),
+                           "--metrics_out", os.path.join(tmp, "multi.jsonl")], timeout=400)
+        multi_s = time.perf_counter() - t0
+        if done.returncode != 0:
+            raise AssertionError(f"parallel: torchrun --multihost failed: {done.stderr[-4000:]}")
+
+        def objs(root):
+            out = {}
+            for sub in os.listdir(root):
+                for name in os.listdir(os.path.join(root, sub)):
+                    if name.endswith(".obj"):
+                        path = os.path.join(root, sub, name)
+                        load_obj(path)          # parses
+                        out[name] = open(path, "rb").read()
+            return out
+
+        multi, alone_objs = objs(os.path.join(tmp, "multi")), objs(os.path.join(tmp, "single"))
+        per_rank = [[json.loads(line)["uid"] for line in open(path)]
+                    for path in (os.path.join(tmp, "multi.jsonl"),
+                                 os.path.join(tmp, "multi.jsonl.1"))]
+        complete = len(multi) == len(clouds) == len(single) and multi == alone_objs
+        counts = _sum_counts([torch.load(os.path.join(tmp, f"cli_rank{r}.pt"),
+                                         weights_only=False) for r in range(2)])
+        emit("parallel_multihost", inputs=len(clouds), faces=PARALLEL_CLI_FACES,
+             objs=sorted(multi), complete_and_byte_equal=complete, records_by_rank=per_rank,
+             folders=len(os.listdir(os.path.join(tmp, "multi"))), torchrun_wall_s=multi_s,
+             single_process_wall_s=single_s, launches=counts)
+        if not complete or per_rank != [["shape0", "shape2"], ["shape1", "shape3"]]:
+            failures.append(("multihost", sorted(multi), per_rank))
+        if counts["k1"] == 0:
+            failures.append(("multihost launched no", "k1"))
+        launches["cli"] = counts
+
+    emit("parallel_done", seconds=time.perf_counter() - t_phase, card=card)
+    if failures:
+        raise AssertionError(f"parallel: {failures}")
+    return _sum_counts([{"counts": c} for c in launches.values()]), worst
+
+
+def parallel_nccl_phase(torch, card: str) -> dict:
+    """Phase parallel_nccl: with two cards or more, phase parallel's dp and
+    tp passes again over NCCL, one rank a card (``cuda:0`` and ``cuda:1``),
+    the TP decode and lookahead replayed as CUDA graphs with the
+    all-reduces captured in them; held as phase parallel holds them (this
+    process's references on ``cuda:0``). With one card it prints that it
+    did not run. Returns the ranks' launches."""
+    if torch.cuda.device_count() < 2:
+        emit("parallel_nccl", run=False,
+             reason="one card: dp and tp over NCCL, one rank a card, with the TP step "
+                    "captured, need two cards; not run, no claim made")
+        return {}
+    from meshanything_tpu_torch.tools import parallel_probe as pp
+
+    probe = [sys.executable, "-m", "meshanything_tpu_torch.tools.parallel_probe"]
+    failures, launches = [], {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, pc = _dp_inputs(tmp)
+        ref = _references(torch, pp, pc, graph=True)
+        ranks, wall = _rank_results(torch, probe, ("dp", "tp"), tmp, "nccl", "--graph")
+        emit("parallel_ranks", backend="nccl", tasks=["dp", "tp"], wall_s=wall)
+        launches["dp"] = _check_dp(torch, pp, ref, ranks["dp"], "nccl", failures)
+        launches["tp"] = _check_tp(torch, pp, ref, ranks["tp"], "nccl", True, failures, card)
+    emit("parallel_nccl", run=True, cards=torch.cuda.device_count(),
+         seconds=time.perf_counter() - t_phase, card=card)
+    if failures:
+        raise AssertionError(f"parallel_nccl: {failures}")
+    return _sum_counts([{"counts": c} for c in launches.values()])
+
 
 PHASES = ("k4_check", "k1_check", "k23_check", "graph_replay", "device_length", "k1_time",
           "fast_time", "k5_check", "k5_replay", "k5_time", "probe_check", "probe_time",
           "measurement_path", "main_path", "graph_loop", "agreement", "floor", "serving",
-          "train", "checkpoint", "warm_start")
+          "train", "checkpoint", "warm_start", "parallel", "parallel_nccl")
 
 
 def parse_only(argv: list) -> set:
@@ -2735,38 +3188,60 @@ def main(argv=None) -> int:
              ptxas=[ln for ln in lib.log.splitlines() if "registers" in ln or "spill" in ln])
 
     worst, times, probe_times = {}, {}, {}
+    clock = [time.perf_counter()]
+
+    def tick(name: str) -> None:
+        """The seconds of the phase that just ran (the device check, the
+        canary and the builds before the first are in none)."""
+        if name in only:
+            now = time.perf_counter()
+            emit("phase_seconds", name=name, seconds=now - clock[0])
+            clock[0] = now
+
     if "k4_check" in only:
         k4_worst = check_k4(torch, da)
         worst.update(k4=k4_worst["tile_split"], k4_window=k4_worst["window"],
                      k4_window_quant=k4_worst["window_quant"])
+    tick("k4_check")
     if "k1_check" in only:
         worst["k1"] = check_k1(torch, da)
+    tick("k1_check")
     if "k23_check" in only:
         worst.update(check_k23(torch, da))
+    tick("k23_check")
     if "graph_replay" in only:
         check_graph_replays(torch, da)
+    tick("graph_replay")
     if "device_length" in only:
         check_device_length(torch, da, mutated)
+    tick("device_length")
     if "k1_time" in only:
         times["k1"] = time_k1(torch, da, card)
+    tick("k1_time")
     if "fast_time" in only:
         from meshanything_tpu_torch.tools.attn_compare import quant_grid
         times.update(time_fast(torch, da, card))
         times["quant_grid"] = quant_grid(torch, da, card)
+    tick("fast_time")
     if "k5_check" in only:
         worst["k5"] = check_k5(torch, mk)
+    tick("k5_check")
     if "k5_replay" in only:
         check_k5_replays(torch, mk)
+    tick("k5_replay")
     if "k5_time" in only:
         times["k5"] = time_k5(torch, mk, da, card)
+    tick("k5_time")
     if "probe_check" in only:
         worst.update(check_streams(torch, pr), t4=check_k1_probe(torch, kp, da))
+    tick("probe_check")
     roof_gbs = None
     if "probe_time" in only:
         probe_times, roof_gbs = time_streams(torch, pr, card)
         probe_times.update(t4=time_k1_probe(torch, kp, da, card), t5=time_canary(torch, pr, card))
         worst["t5"] = max(first["max_abs_err"],
                           *(t["max_abs_err"] for t in probe_times["t5"].values()))
+    tick("probe_time")
 
     wrappers = {"k1": da.decode_attention, "k2": da.decode_attention_int8,
                 "k3": da.decode_attention_int4, "k4": da.decode_attention_mq,
@@ -2774,31 +3249,48 @@ def main(argv=None) -> int:
                 "t3": pr.dual_stream, "t4": kp.k1_probe, "t5": pr.scale_shift}
     if "measurement_path" in only:
         probe_launches = drive_measurement_path(torch, wrappers)
+    tick("measurement_path")
     runs = []
     if "main_path" in only:
         runs = drive_main_path(torch, wrappers, cli, load_obj, paired="graph_loop" in only)
+    tick("main_path")
     if "graph_loop" in only:
         graph_loop(torch, wrappers, cli, load_obj, card, roof_gbs)
+    tick("graph_loop")
     if "agreement" in only:
         small_input_agreement(torch)
+    tick("agreement")
     if "floor" in only:
         floors_and_budget(torch, runs, roof_gbs, card)
+    tick("floor")
     serving_launches = {}
     if "serving" in only:
         serving_runs, serving_launches = serving_phase(torch, wrappers, cli, load_obj, card)
         runs += serving_runs
+    tick("serving")
 
     train_launches = {}
     if "train" in only:
         train_launches = train_phase(torch, wrappers, card)
+    tick("train")
     if "checkpoint" in only:
         runs += checkpoint_phase(torch, wrappers, cli, load_obj, card)
+    tick("checkpoint")
     if "warm_start" in only:
         warm_start_phase(torch, wrappers, load_obj, card)
-
+    tick("warm_start")
+    parallel_launches, parallel_worst = {}, {}
+    if "parallel" in only:
+        parallel_launches, parallel_worst = parallel_phase(torch, da, cli, load_obj, card)
+    tick("parallel")
+    if "parallel_nccl" in only:
+        for key, n in parallel_nccl_phase(torch, card).items():
+            parallel_launches[key] = parallel_launches.get(key, 0) + n
+    tick("parallel_nccl")
     if only == set(PHASES):
         print(json.dumps(kernels_line(runs, times, probe_times, probe_launches, worst, roof_gbs,
-                                      serving_launches, train_launches)), flush=True)
+                                      serving_launches, train_launches, parallel_launches,
+                                      parallel_worst)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2820,19 +3312,21 @@ def drive_main_path(torch, wrappers: dict, cli, load_obj, paired: bool = False) 
         pc = ["--input_type", "pc_normal", "--input_path", npy, *common]
         meshes = ["--input_type", "mesh", "--input_dir", mesh_dir, "--batchsize_per_gpu", "2",
                   *common]
-        short = ["--n_max_triangles", "100"]
         cli_runs = [
-            # depth cuts (200 faces, 1801 steps; 400 faces, 3601 steps) to keep the smoke
-            # near half its time limit; M1 is the full-length B=1 run
-            ("exact_pc", ["--n_max_triangles", "200", *pc], 1, "k1", 200),
+            # depth cuts (100 faces, 901 steps; 200, 1801; 400, 3601; 50, 451) against the
+            # smoke's limit of 1,200 s, which it aims to end within half of: the paired eager
+            # decodes of phase graph_loop take most of this phase's time (F5's int4 + W8A8
+            # eager step ~0.1 s, so F5 is cut furthest). M1 and graph_loop's exact run are
+            # the full-length B=1 runs
+            ("exact_pc", ["--n_max_triangles", "100", *pc], 1, "k1", 100),
             ("exact_meshes", ["--n_max_triangles", "400", *meshes], 2, "k1", 400),
-            # F1 and F2 cut to 400 faces (3601 steps), for the smoke's time
-            ("F1", ["--fast", "--n_max_triangles", "400", *pc], 1, "k4", 400),
+            ("F1", ["--fast", "--n_max_triangles", "200", *pc], 1, "k4", 200),
             ("F2", ["--attn", "pallas_int4", "--lookahead", "adaptive", "--n_max_triangles",
-                    "400", *meshes], 2, "k4", 400),
+                    "200", *meshes], 2, "k4", 200),
             ("F3", ["--lookahead", "8", *pc], 1, "k4", 800),
-            ("F4", ["--attn", "pallas_int8", *short, *pc], 1, "k2", 100),
-            ("F5", ["--attn", "pallas_int4", "--wq", *short, *meshes], 2, "k3", 100),
+            ("F4", ["--attn", "pallas_int8", "--n_max_triangles", "100", *pc], 1, "k2", 100),
+            ("F5", ["--attn", "pallas_int4", "--wq", "--n_max_triangles", "50", *meshes], 2,
+             "k3", 50),
         ]
         runs = [run_main_path(torch, wrappers, load_obj, name, cli_run(argv), expect, kernel,
                               max_faces=faces, argv=argv, paired=paired and name in PAIRED_RUNS)
@@ -2855,7 +3349,8 @@ def drive_main_path(torch, wrappers: dict, cli, load_obj, paired: bool = False) 
 
 
 def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dict, worst: dict,
-                 roof_gbs: float, serving_launches: dict, train_launches: dict) -> dict:
+                 roof_gbs: float, serving_launches: dict, train_launches: dict,
+                 parallel_launches: dict, parallel_worst: dict) -> dict:
     """The ``kernels`` line: K1-K5 and T1-T5, each with its launches on the
     main path, the serving path and the train phase's decode (``launches``;
     the serving path's and the train phase's also apart:
@@ -2938,6 +3433,14 @@ def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dic
         entry["launches"] += train_launches[key]
         entry["launches_train"] = train_launches[key]
         entry["replayed_launches_train"] = train_launches[key + "_replayed"]
+    # the parallel phase's ranks: K1-K3, the int8/int4 and bf16 K4 and K5
+    for entry, key in ((kernels[0], "k1"), (kernels[1], "k2"), (kernels[2], "k3"),
+                       (kernels[3], "k4_quant_window"), (kernels[4], "k4_window"),
+                       (kernels[5], "k5")):
+        entry["launches"] += parallel_launches[key]
+        entry["launches_parallel"] = parallel_launches[key]
+    kernels[0]["max_abs_err_local_heads"] = parallel_worst["k1"]
+    kernels[4]["max_abs_err_local_heads"] = parallel_worst["k4_window"]
     kernels += probe_kernel_entries(probe_times, probe_launches, worst)
     data_sheet_gbs = HBM_BYTES_PER_S / 1e9
     for entry in kernels:

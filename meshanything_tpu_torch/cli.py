@@ -22,8 +22,15 @@ JSON object a line, ``--resume`` skips inputs whose OBJ exists,
 ``--aot_dir`` keeps the built kernel libraries in a directory that a
 later process finds them in (``runtime/aot.py``), and ``--precompile``
 builds them and captures the batch size's decode graphs before the first
-input (with no input, it only does that). Flags of slices not ported yet
-(``--multihost``, ``--attn xla``) raise. As in the JAX CLI,
+input (with no input, it only does that). ``--multihost`` runs a folder
+over the ranks of ``torchrun --nproc_per_node N -m
+meshanything_tpu_torch.cli --multihost ...``: the inputs are split per
+rank (``parallel/multihost.py``; each rank draws the seeded sampling over
+every input, so the outputs equal one process's), each rank decodes on its card (``cuda:
+LOCAL_RANK % device_count()``) with no collective, all write into one
+``<out_dir>/<time>``, and ``--metrics_out`` gets a ``.{rank}`` suffix on
+ranks > 0; on one process it is a no-op. ``--attn xla`` is not ported and
+raises. As in the JAX CLI,
 ``--attn megakernel`` is no choice: ``InferencePipeline(attn="megakernel")``
 is that path's entry. ``python -m meshanything_tpu_torch.serving`` takes
 the same flags and serves over HTTP.
@@ -91,8 +98,9 @@ def get_args(argv=None):
     parser.add_argument("--precompile", default=False, action="store_true",
                         help="build the kernel libraries and capture the batch size's decode "
                              "graphs before the first input (no input needed)")
-    # a flag of a later slice: accepted so that it fails with a clear message
-    parser.add_argument("--multihost", default=False, action="store_true")
+    parser.add_argument("--multihost", default=False, action="store_true",
+                        help="split the inputs over the ranks of torchrun (one process: "
+                             "no-op)")
     return apply_fast_preset(parser.parse_args(argv))
 
 
@@ -112,7 +120,6 @@ def apply_fast_preset(args):
 def check_ported(args) -> None:
     """Raise on flags whose code is not ported yet."""
     later = {
-        "--multihost": args.multihost,
         "--attn": args.attn not in ("auto", "pallas", "pallas_int8", "pallas_int4"),
     }
     named = [flag for flag, given in later.items() if given]
@@ -121,7 +128,7 @@ def check_ported(args) -> None:
             f"{', '.join(named)}: not ported yet to meshanything_tpu_torch (it runs the "
             "exact and the fast tiers of the decode on one card: --attn "
             "pallas|pallas_int8|pallas_int4, --lookahead, --wq, --fast; --mc, "
-            "--complete_from)")
+            "--complete_from, --multihost)")
 
 
 def build_config(args):
@@ -203,16 +210,35 @@ def main(argv=None):
     enable_compile_cache()
     args = get_args(argv)
     check_ported(args)
-    device = resolve_device(args.device)
+    rank, world = 0, 1
+    if args.multihost:
+        from meshanything_tpu_torch.parallel import multihost
+
+        multihost.initialize_multihost()
+        rank, world = multihost.process_info()
+        print(f"multihost: process {rank}/{world}")
+        device = multihost.rank_device(args.device)
+    else:
+        device = resolve_device(args.device)
     cfg = build_config(args)
 
-    out_dir = os.path.join(args.out_dir, datetime.datetime.now().strftime("%d_%H-%M-%S"))
+    stamp = datetime.datetime.now().strftime("%d_%H-%M-%S")
+    if args.multihost:
+        from meshanything_tpu_torch.parallel.collectives import broadcast_object
+
+        stamp = broadcast_object(stamp)     # one folder for every rank
+    out_dir = os.path.join(args.out_dir, stamp)
     os.makedirs(out_dir, exist_ok=True)
 
     model = load_params(args, cfg, device)
     paths = collect_inputs(args)
     samples = load_inputs(args.input_type, paths, marching_cubes=args.mc,
                           num_points=cfg.perceiver.num_points, seed=args.seed)
+    if args.multihost:
+        # the samples, not the paths, are split: the seeded sampling draws
+        # over every input in order on each rank, so that an input's points,
+        # and its mesh, do not depend on the number of ranks
+        samples = multihost.shard_files_for_host(samples)
     print(f"dataset total data samples: {len(samples)}")
 
     prompt_tokens = None
@@ -226,16 +252,18 @@ def main(argv=None):
         print(f"mesh completion: seeding {len(partial.faces)} faces "
               f"({len(prompt_tokens)} tokens) from {args.complete_from}")
 
+    # a rank past the first names its place in a budget error
+    place = f"rank {rank} of {world} (--multihost)" if rank else None
     pipe = InferencePipeline(model, cfg, batch_size=args.batchsize_per_gpu, bucket=args.bucket,
                              attn=args.attn, lookahead=args.lookahead, wq=args.wq,
-                             aot_dir=args.aot_dir)
+                             aot_dir=args.aot_dir, place=place)
     if args.precompile:
         t0 = time.time()
         report = pipe.runner.precompile(args.batchsize_per_gpu, sampling=args.sampling)
         where = f" (kernel libraries in {args.aot_dir})" if args.aot_dir else ""
         print(f"precompile done in {time.time() - t0:.1f}s: built {report['built']}, "
               f"{report['graph_captures']} decode graphs captured{where}")
-        if not paths:
+        if not paths and not args.multihost:   # every rank goes on to the closing barrier
             return []
     begin = time.time()
     print("Generation Start!!!")
@@ -245,7 +273,10 @@ def main(argv=None):
         print(f"{r.get('obj_path', r['uid'])} Over!!")
     print(f"Total time: {time.time() - begin}")
     if args.metrics_out:
-        write_metrics(results, args.metrics_out)
+        # one file a rank (JAX cli.py:245-246)
+        write_metrics(results, f"{args.metrics_out}.{rank}" if rank else args.metrics_out)
+    if args.multihost:
+        multihost.finish_multihost()
     return results
 
 

@@ -13,6 +13,12 @@ choice is visible at its call site:
 The JAX package ran the prefill, perceiver and detokenizer attentions as
 blockwise XLA (``flash_attention_causal`` / ``flash_attention_full``);
 here they are dense torch attention, which is the same math.
+
+Tensor parallelism (``parallel/mesh.py``): a block whose ``tp_group`` is
+set holds its rank's shard of each split matrix and ``num_heads`` of its
+heads; ``col_lin`` and ``row_lin`` are its linears (the sum over the model
+group after a row-parallel one, its bias added once after the sum). With
+``tp_group`` None they are ``lin``.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from meshanything_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -43,6 +51,26 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
 
 def lin(x: torch.Tensor, m: nn.Linear) -> torch.Tensor:
     return linear(x, m.weight, m.bias)
+
+
+def col_lin(x: torch.Tensor, m, group, lin_e=lin) -> torch.Tensor:
+    """A column-parallel linear (``m`` holds the rank's output features):
+    ``lin_e(x, m)``, and under a model group x's grad summed over it in
+    backward (``copy_to_model``)."""
+    return lin_e(copy_to_model(x, group), m)
+
+
+def row_lin(x: torch.Tensor, m, group, lin_e=lin) -> torch.Tensor:
+    """A row-parallel linear (``m`` holds the rank's input features): the
+    partial products summed over the model group in f32, the bias added
+    once after the sum, rounded once to x's dtype. ``lin_e(x, m)`` without
+    a group."""
+    if group is None:
+        return lin_e(x, m)
+    y = reduce_from_model(linear(x, m.weight), group)
+    if m.bias is not None:
+        y = y + m.bias.float()
+    return y.to(x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -102,6 +130,7 @@ class SelfAttentionBlock(nn.Module):
         super().__init__()
         f = {"device": device, "dtype": dtype}
         self.num_heads = num_heads
+        self.tp_group = None
         self.dual_sqrt_scale = dual_sqrt_scale
         self.ln1 = nn.LayerNorm(width, eps=ln_eps, **f)
         self.qkv = _linear(width, 3 * width, qkv_bias, f)
@@ -111,12 +140,13 @@ class SelfAttentionBlock(nn.Module):
         self.fc_out = _linear(4 * width, width, True, f)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q, k, v = lin(ln(x, self.ln1), self.qkv).chunk(3, dim=-1)
+        g = self.tp_group
+        q, k, v = col_lin(ln(x, self.ln1), self.qkv, g).chunk(3, dim=-1)
         h = self.num_heads
         o = attention(_split_heads(q, h), _split_heads(k, h), _split_heads(v, h),
                       dual_sqrt_scale=self.dual_sqrt_scale)
-        x = x + lin(_merge_heads(o), self.proj)
-        return x + lin(gelu(lin(ln(x, self.ln2), self.fc)), self.fc_out)
+        x = x + row_lin(_merge_heads(o), self.proj, g)
+        return x + row_lin(gelu(col_lin(ln(x, self.ln2), self.fc, g)), self.fc_out, g)
 
 
 class CrossAttentionBlock(nn.Module):
@@ -127,6 +157,7 @@ class CrossAttentionBlock(nn.Module):
         super().__init__()
         f = {"device": device, "dtype": dtype}
         self.num_heads = num_heads
+        self.tp_group = None
         self.ln_q = nn.LayerNorm(width, eps=ln_eps, **f)
         self.ln_kv = nn.LayerNorm(width, eps=ln_eps, **f)
         self.q = _linear(width, width, qkv_bias, f)
@@ -137,10 +168,11 @@ class CrossAttentionBlock(nn.Module):
         self.fc_out = _linear(4 * width, width, True, f)
 
     def forward(self, x: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-        q = lin(ln(x, self.ln_q), self.q)
-        k, v = lin(ln(data, self.ln_kv), self.kv).chunk(2, dim=-1)
+        g = self.tp_group
+        q = col_lin(ln(x, self.ln_q), self.q, g)
+        k, v = col_lin(ln(data, self.ln_kv), self.kv, g).chunk(2, dim=-1)
         h = self.num_heads
         o = attention(_split_heads(q, h), _split_heads(k, h), _split_heads(v, h),
                       dual_sqrt_scale=True)
-        x = x + lin(_merge_heads(o), self.proj)
-        return x + lin(gelu(lin(ln(x, self.ln_mlp), self.fc)), self.fc_out)
+        x = x + row_lin(_merge_heads(o), self.proj, g)
+        return x + row_lin(gelu(col_lin(ln(x, self.ln_mlp), self.fc, g)), self.fc_out, g)

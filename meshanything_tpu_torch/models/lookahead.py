@@ -23,6 +23,12 @@ reads the live flags once every few forwards. On the card each forward
 is a replay of a CUDA graph captured for the window's width
 (``runtime/decode_graph.py``); elsewhere the same forward runs eagerly.
 
+Under tensor parallelism (``parallel/mesh.py``) a forward runs the rank's
+heads over its cache columns (K4 over (H / tp) * D) and sums the out and
+fc2 products over the model group (``OPTLayer.after_attention``); the
+int8/int4 caches and ``wq`` are not ported there
+(``shape_opt.check_tensor_parallel``).
+
 Sampling is speculative sampling against the deterministic draft chain
 of the window's guesses (``_speculative_accept``), with a
 ``torch.Generator``: it keeps the step-by-step top-k/top-p distribution,
@@ -36,11 +42,13 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from meshanything_tpu_torch.config import ShapeOPTConfig
-from meshanything_tpu_torch.models.layers import lin
+from meshanything_tpu_torch.models.layers import col_lin, lin
 from meshanything_tpu_torch.models.shape_opt import (
     Cache,
     ShapeOPT,
+    check_capture,
     check_prompt,
+    check_tensor_parallel,
     embed_tokens,
     face_phase_ids,
     prefill_cache,
@@ -152,7 +160,7 @@ def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
     lin_e = lin_dispatch(wq_layers is not None)
     b, w = state.window.shape
     dtype = p.cond_embed.dtype
-    h, hd, d_model = cfg.num_heads, cfg.head_dim, cfg.hidden_size
+    hd = cfg.head_dim
     dev = state.window.device
     idx_w = torch.arange(w, device=dev)[None, :]
 
@@ -168,11 +176,12 @@ def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
     rows = []
     for layer_idx, layer in enumerate(p.layers):
         mats = layer if wq_layers is None else wq_layers[layer_idx]
-        q, k, v = lin_e(x, mats.qkv).chunk(3, dim=-1)                  # (B, W, d)
+        h = layer.num_heads                                             # the rank's heads
+        q, k, v = col_lin(x, mats.qkv, layer.tp_group, lin_e).chunk(3, dim=-1)   # (B, W, h*hd)
         o, appended = _window_attention(state, layer_idx, q.reshape(b, w, h, hd).contiguous(),
                                         k, v, base)
         rows.append(appended)
-        x = layer.after_attention(x, o.reshape(b, w, d_model), mats, lin_e)
+        x = layer.after_attention(x, o.reshape(b, w, h * hd), mats, lin_e)
     _append_window(state, rows, write_start)
 
     logits = lin(x, p.lm_head).float()                                  # (B, W, V)
@@ -260,6 +269,7 @@ def init_lookahead_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Te
     window at ``window``'s width), and ``into`` is returned."""
     attn = resolve_attn(attn)
     check_attn(attn)
+    check_tensor_parallel(p, attn)
     bw = window if buf_window is None else buf_window
     if bw < window:
         raise ValueError(f"buf_window={bw} must be >= window={window}")
@@ -333,6 +343,7 @@ def lookahead_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *
         key = (max_new_tokens, sampling, top_k, top_p, max_accept, id(wq_layers))
         g = state.graphs.get(w)
         if g is None:
+            check_capture(p)
             g = decode_graph.StepGraph(forward, state.tokens.device,
                                        generator=state.generator if sampling else None, key=key)
             g.window = state.window        # the window tensor the graph reads and writes
@@ -388,7 +399,7 @@ def generate_lookahead(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tens
                        generator: Optional[torch.Generator] = None,
                        return_stats: bool = False,
                        prompt_ids: Optional[torch.Tensor] = None,
-                       max_accept: Optional[int] = None):
+                       max_accept: Optional[int] = None, graph: bool = True):
     """Generation with lookahead -> (B, max_new_tokens) int64; with
     ``return_stats`` also {"iterations": window forwards, "emitted":
     (B,) tokens per row past the prompt}. Greedy output is the
@@ -397,12 +408,14 @@ def generate_lookahead(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tens
     ``prompt_ids`` (B, P): continue from a token prefix (see
     ``shape_opt.generate``), echoed at the front of the output.
     ``max_accept`` caps the tokens a row accepts per forward, greedy only:
-    a measurement knob that keeps the stream and lowers the acceptance."""
+    a measurement knob that keeps the stream and lowers the acceptance.
+    ``graph=False``: the eager loop on a card."""
     if max_accept is not None and sampling:
         # the accept/residual draws are spent before a cap could cut the
         # run: the cut stream would lose the step-by-step distribution
         raise ValueError("max_accept is a greedy-mode measurement knob; "
                          "it does not preserve the sampling distribution")
+    check_tensor_parallel(p, attn, wq)
     state = init_lookahead_state(p, cfg, cond_embeds, max_new_tokens=max_new_tokens,
                                  window=window, bucket=bucket, attn=attn, sampling=sampling,
                                  top_k=top_k, top_p=top_p, generator=generator,
@@ -410,7 +423,7 @@ def generate_lookahead(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tens
     state = lookahead_segment(p, cfg, state, max_new_tokens=max_new_tokens,
                               wq_layers=quantize_opt_layers(p.layers) if wq else None,
                               sampling=sampling, top_k=top_k, top_p=top_p,
-                              max_accept=max_accept)
+                              max_accept=max_accept, graph=graph)
     tokens = state.tokens[:, :max_new_tokens]
     if return_stats:
         p_len = 0 if prompt_ids is None else prompt_ids.shape[1]

@@ -1,6 +1,12 @@
 """Top-level MeshAnything composition (the port of
 ``meshanything_tpu/models/meshanything.py``): perceiver -> condition ->
 autoregressive decode -> codebook gather -> noise-resistant detokenizer.
+
+Over a (data, model) mesh (``parallel/mesh.py``) ``generate`` and
+``forward_logits`` take the rank's local module (``shard_params``) and the
+global batch: each data rank runs its rows, and the rows are gathered
+again at the end (the counterpart of the JAX package's jit over
+``P("data", ...)``). The model axis is the local module's own.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from meshanything_tpu_torch.models import nrd as nrd_mod
 from meshanything_tpu_torch.models import perceiver as per_mod
 from meshanything_tpu_torch.models import shape_opt as opt_mod
 from meshanything_tpu_torch.models.layers import lin
+from meshanything_tpu_torch.parallel.collectives import gather_rows
 
 
 class MeshAnything(nn.Module):
@@ -75,12 +82,30 @@ def encode(m: MeshAnything, cfg: MeshAnythingConfig, pc_normal: torch.Tensor):
     return point_feature, process_point_feature(m, cfg, point_feature)
 
 
+def local_rows(mesh, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The data rank's block of the global batch ``x`` (B, ...): B must
+    split evenly over the data axis. ``x`` itself without a mesh."""
+    if mesh is None or mesh.data == 1 or x is None:
+        return x
+    b = x.shape[0]
+    if b % mesh.data:
+        raise ValueError(f"batch {b} does not split over {mesh.data} data ranks")
+    n = b // mesh.data
+    return x[mesh.data_index * n:(mesh.data_index + 1) * n]
+
+
 def forward_logits(m: MeshAnything, cfg: MeshAnythingConfig, pc_normal: torch.Tensor,
                    token_ids: torch.Tensor, *, remat: bool = False,
-                   block_q: int = 0) -> torch.Tensor:
+                   block_q: int = 0, mesh=None) -> torch.Tensor:
     """Teacher-forcing logits (B, C + T, vocab) f32 over [condition ||
     token_ids] (JAX ``forward_logits``): the training pass. ``remat`` and
-    ``block_q`` as in ``shape_opt.forward_full``."""
+    ``block_q`` as in ``shape_opt.forward_full``. With ``mesh`` the batch
+    is split over its data axis and the logits gathered (no autograd
+    through the gather: the sharded trainer takes its rows' logits)."""
+    if mesh is not None and mesh.data > 1:
+        logits = forward_logits(m, cfg, local_rows(mesh, pc_normal), local_rows(mesh, token_ids),
+                                remat=remat, block_q=block_q)
+        return gather_rows(logits, mesh.data_group)
     _, cond = encode(m, cfg, pc_normal)
     return opt_mod.forward_full(m.opt, cfg.opt, cond, token_ids, remat=remat, block_q=block_q)
 
@@ -96,17 +121,29 @@ def detokenize(m: MeshAnything, cfg: MeshAnythingConfig, raw_tokens: torch.Tenso
 def generate(m: MeshAnything, cfg: MeshAnythingConfig, pc_normal: torch.Tensor, *,
              sampling: bool = False, generator: Optional[torch.Generator] = None,
              bucket: int = 512, attn: str = "pallas", lookahead: int = 0,
-             wq: bool = False, prompt_ids: Optional[torch.Tensor] = None) -> GenerateOutput:
+             wq: bool = False, prompt_ids: Optional[torch.Tensor] = None, mesh=None,
+             graph: bool = True) -> GenerateOutput:
     """Full inference pass (meshanything.py:134-176) on (B, N, 6)
     normalized points+normals. ``lookahead`` > 0 decodes with Jacobi
     windows of that width (``models/lookahead.py``; with ``sampling``,
     speculative sampling); ``attn`` picks the cache tier, or "megakernel"
     for one K5 launch a step (single-token loop only), and ``wq`` the
     int8 layer matrices (``models/shape_opt.py``). ``prompt_ids`` (B, P)
-    continues a token prefix (``complete``)."""
+    continues a token prefix (``complete``). ``mesh``: ``m`` is the rank's
+    local module and the batch is split over the data axis, the rows
+    gathered at the end (a data rank's decode runs no collective; a
+    sampled row draws from ``generator`` as the first rows of a batch do).
+    ``graph=False``: the eager decode on a card (a tensor-parallel decode
+    over gloo must ask for it)."""
+    if mesh is not None and mesh.data > 1:
+        out = generate(m, cfg, local_rows(mesh, pc_normal), sampling=sampling,
+                       generator=generator, bucket=bucket, attn=attn, lookahead=lookahead, wq=wq,
+                       prompt_ids=local_rows(mesh, prompt_ids), graph=graph)
+        return GenerateOutput(gather_rows(out.face_coords, mesh.data_group),
+                              gather_rows(out.token_ids, mesh.data_group))
     point_feature, cond = encode(m, cfg, pc_normal)
     kw = dict(max_new_tokens=cfg.generate_length, sampling=sampling, generator=generator,
-              bucket=bucket, attn=attn, wq=wq, prompt_ids=prompt_ids)
+              bucket=bucket, attn=attn, wq=wq, prompt_ids=prompt_ids, graph=graph)
     if lookahead > 0:
         raw = la_mod.generate_lookahead(m.opt, cfg.opt, cond, window=lookahead, **kw)
     else:

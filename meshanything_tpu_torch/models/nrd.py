@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from meshanything_tpu_torch.config import NRDConfig
-from meshanything_tpu_torch.models.layers import attention, gelu, lin, ln
+from meshanything_tpu_torch.models.layers import attention, col_lin, gelu, lin, ln, row_lin
 
 
 class BertLayer(nn.Module):
@@ -23,6 +23,7 @@ class BertLayer(nn.Module):
         f = {"device": device, "dtype": dtype}
         d, i = cfg.hidden_size, cfg.intermediate_size
         self.num_heads = cfg.num_heads
+        self.tp_group = None            # the model group of a tensor-parallel shard
         self.qkv = nn.Linear(d, 3 * d, **f)
         self.attn_out = nn.Linear(d, d, **f)
         self.ln_attn = nn.LayerNorm(d, eps=cfg.ln_eps, **f)
@@ -31,12 +32,12 @@ class BertLayer(nn.Module):
         self.ln_ffn = nn.LayerNorm(d, eps=cfg.ln_eps, **f)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, d = x.shape
-        h = self.num_heads
-        q, k, v = (t.reshape(b, n, h, d // h) for t in lin(x, self.qkv).chunk(3, dim=-1))
-        o = attention(q, k, v).reshape(b, n, d)
-        x = ln(x + lin(o, self.attn_out), self.ln_attn)
-        return ln(x + lin(gelu(lin(x, self.fc1)), self.fc2), self.ln_ffn)
+        b, n, _ = x.shape
+        h, g = self.num_heads, self.tp_group
+        q, k, v = (t.reshape(b, n, h, -1) for t in col_lin(x, self.qkv, g).chunk(3, dim=-1))
+        o = attention(q, k, v).reshape(b, n, -1)
+        x = ln(x + row_lin(o, self.attn_out, g), self.ln_attn)
+        return ln(x + row_lin(gelu(col_lin(x, self.fc1, g)), self.fc2, g), self.ln_ffn)
 
 
 class NRD(nn.Module):

@@ -41,6 +41,15 @@ of the step replayed (``runtime/decode_graph.py``), elsewhere the same
 step run eagerly. The host reads the counter once a segment
 (``decode_loop``: segments of ``sync_every`` steps). ``attn="megakernel"``
 stays eager on the card: K5 takes the write position by value.
+
+Tensor parallelism (``parallel/mesh.py::shard_params``): each layer holds
+its rank's heads (``OPTLayer.num_heads``) and shards, and sums its out and
+fc2 products over ``OPTLayer.tp_group``; the rank's cache is (2, L, B, S,
+(H / tp) * D), K1 and K4 run over its heads alone. The step with the
+sums is captured into a CUDA graph under NCCL; under gloo it runs eagerly
+(``graph=False``; a capture asked for raises). The int8/int4 caches,
+``wq`` and the megakernel under tensor parallelism are not ported yet
+(``check_tensor_parallel``).
 """
 from __future__ import annotations
 
@@ -53,7 +62,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from meshanything_tpu_torch.config import ShapeOPTConfig
-from meshanything_tpu_torch.models.layers import attention, lin, ln
+from meshanything_tpu_torch.models.layers import attention, col_lin, lin, ln, row_lin
 from meshanything_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_int4,
@@ -72,6 +81,7 @@ from meshanything_tpu_torch.ops.megakernel import (
 )
 from meshanything_tpu_torch.ops.sampling import sample_token
 from meshanything_tpu_torch.ops.wquant import lin_dispatch, quantize_opt_layers
+from meshanything_tpu_torch.parallel.collectives import capturable
 from meshanything_tpu_torch.runtime import decode_graph
 
 ATTN_MODES = ("pallas", "pallas_int8", "pallas_int4", "megakernel")
@@ -84,6 +94,8 @@ class OPTLayer(nn.Module):
         super().__init__()
         f = {"device": device, "dtype": dtype}
         d = cfg.hidden_size
+        self.num_heads = cfg.num_heads     # the rank's heads under tensor parallelism
+        self.tp_group = None               # the model group of a tensor-parallel shard
         self.qkv = nn.Linear(d, 3 * d, **f)
         self.out = nn.Linear(d, d, **f)
         self.ln_attn = nn.LayerNorm(d, eps=cfg.ln_eps, **f)
@@ -98,8 +110,10 @@ class OPTLayer(nn.Module):
         holds the out/fc1/fc2 matrices (default: this layer's), applied
         with ``lin_e`` (``ops.wquant.lin_dispatch``)."""
         mats = self if mats is None else mats
-        x = ln(x + lin_e(o.to(x.dtype), mats.out), self.ln_attn)
-        return ln(x + lin_e(F.relu(lin_e(x, mats.fc1)), mats.fc2), self.ln_ffn)
+        g = self.tp_group
+        x = ln(x + row_lin(o.to(x.dtype), mats.out, g, lin_e), self.ln_attn)
+        return ln(x + row_lin(F.relu(col_lin(x, mats.fc1, g, lin_e)), mats.fc2, g, lin_e),
+                  self.ln_ffn)
 
 
 class ShapeOPT(nn.Module):
@@ -160,33 +174,34 @@ def prefill(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor,
     """Causal pass over the (B, C, d) condition embeddings. Writes rows
     [0, C) of every layer of ``kv_cache`` (2, L, B, S, H*D) in place and
     returns the last position's logits (B, vocab) in f32."""
-    b, c, d = cond_embeds.shape
-    h, hd = cfg.num_heads, cfg.head_dim
+    b, c, _ = cond_embeds.shape
+    hd = cfg.head_dim
     x = cond_embeds + p.cond_embed[0].to(cond_embeds.dtype)
     x = x + p.embed_positions[cfg.pos_offset:cfg.pos_offset + c].to(x.dtype)
     for layer_idx, layer in enumerate(p.layers):
-        q, k, v = lin(x, layer.qkv).chunk(3, dim=-1)
+        h = layer.num_heads
+        q, k, v = col_lin(x, layer.qkv, layer.tp_group).chunk(3, dim=-1)
         kv_cache[0, layer_idx, :, :c] = k
         kv_cache[1, layer_idx, :, :c] = v
         o = attention(q.reshape(b, c, h, hd), k.reshape(b, c, h, hd), v.reshape(b, c, h, hd),
                       causal=True)
-        x = layer.after_attention(x, o.reshape(b, c, d))
+        x = layer.after_attention(x, o.reshape(b, c, h * hd))
     return lin(x[:, -1], p.lm_head).float()
 
 
-def _train_layer(layer: OPTLayer, x: torch.Tensor, num_heads: int, block_q: int) -> torch.Tensor:
+def _train_layer(layer: OPTLayer, x: torch.Tensor, block_q: int) -> torch.Tensor:
     """One decoder layer of the teacher-forcing pass (JAX
     ``_opt_layer_prefill(with_kv=False)``): causal self-attention over
     every position, then ``after_attention``."""
-    b, n, d = x.shape
-    q, k, v = (y.reshape(b, n, num_heads, d // num_heads)
-               for y in lin(x, layer.qkv).chunk(3, dim=-1))
+    b, n, _ = x.shape
+    q, k, v = (y.reshape(b, n, layer.num_heads, -1)
+               for y in col_lin(x, layer.qkv, layer.tp_group).chunk(3, dim=-1))
     if block_q:
         o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                            v.transpose(1, 2), is_causal=True).transpose(1, 2)
     else:
         o = attention(q, k, v, causal=True)
-    return layer.after_attention(x, o.reshape(b, n, d))
+    return layer.after_attention(x, o.reshape(b, n, -1))
 
 
 def forward_full(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor,
@@ -213,9 +228,9 @@ def forward_full(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor,
     x = x + p.embed_positions[cfg.pos_offset:cfg.pos_offset + x.shape[1]].to(x.dtype)
     for layer in p.layers:
         if remat:
-            x = checkpoint(_train_layer, layer, x, cfg.num_heads, block_q, use_reentrant=False)
+            x = checkpoint(_train_layer, layer, x, block_q, use_reentrant=False)
         else:
-            x = _train_layer(layer, x, cfg.num_heads, block_q)
+            x = _train_layer(layer, x, block_q)
     return lin(x, p.lm_head).float()
 
 
@@ -225,6 +240,33 @@ def resolve_attn(attn: str) -> str:
     if attn not in ATTN_MODES:
         raise ValueError(f"attn={attn!r}: the port runs {ATTN_MODES} (and 'auto')")
     return attn
+
+
+def check_tensor_parallel(p: ShapeOPT, attn: str, wq: bool = False) -> None:
+    """Raise for what tensor parallelism (a model group on the layers) does
+    not run yet: the int8/int4 caches (a row's scale is the amax over all
+    H*D columns, which a rank's heads do not hold), W8A8 (its amaxes span
+    the split axis) and the megakernel (K5 runs all layers in one launch,
+    with no point between them for the sum). ROADMAP Queue 1 item 8."""
+    if p.layers[0].tp_group is None:
+        return
+    named = [what for what, given in (
+        ("the int8/int4 KV cache", attn in QUANTIZED), ("attn='megakernel'", attn == "megakernel"),
+        ("wq (W8A8)", wq)) if given]
+    if named:
+        raise NotImplementedError(
+            f"tensor parallelism (model axis > 1) with {', '.join(named)}: not ported yet "
+            "(ROADMAP Queue 1 item 8); data parallelism runs every tier")
+
+
+def check_capture(p: ShapeOPT) -> None:
+    """Raise where a step would be captured with collectives that a CUDA
+    graph cannot hold (a gloo model group): run such a decode with
+    ``graph=False``."""
+    if not capturable(p.layers[0].tp_group):
+        raise ValueError("a CUDA-graph capture of a tensor-parallel step over gloo: gloo's "
+                         "collectives cannot be captured; decode with graph=False (eager), "
+                         "or one rank a card over NCCL")
 
 
 def prefill_with_prompt(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor,
@@ -243,16 +285,17 @@ def prefill_with_prompt(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Ten
     ``scaled_dot_product_attention`` (JAX switches to its blockwise
     attention there: the dense f32 scores of a long completion prompt
     would take gigabytes a layer)."""
-    b, c, d = cond_embeds.shape
+    b, c, _ = cond_embeds.shape
     t = token_ids.shape[1]
-    h, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
     dtype = cond_embeds.dtype
     cond_x = cond_embeds + p.cond_embed[0].to(dtype)
     x = torch.cat([cond_x, embed_stream(p, cfg, token_ids, dtype)], dim=1)
     n = c + t
     x = x + p.embed_positions[cfg.pos_offset:cfg.pos_offset + n].to(dtype)
     for layer_idx, layer in enumerate(p.layers):
-        q, k, v = lin(x, layer.qkv).chunk(3, dim=-1)
+        h = layer.num_heads
+        q, k, v = col_lin(x, layer.qkv, layer.tp_group).chunk(3, dim=-1)
         kv_cache[0, layer_idx, :, :n] = k
         kv_cache[1, layer_idx, :, :n] = v
         q, k, v = (y.reshape(b, n, h, hd) for y in (q, k, v))
@@ -261,7 +304,7 @@ def prefill_with_prompt(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Ten
                                                v.transpose(1, 2), is_causal=True).transpose(1, 2)
         else:
             o = attention(q, k, v, causal=True)
-        x = layer.after_attention(x, o.reshape(b, n, d))
+        x = layer.after_attention(x, o.reshape(b, n, h * hd))
     return lin(x[:, -1], p.lm_head).float()
 
 
@@ -285,7 +328,7 @@ def prefill_cache(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, a
 
     if attn not in QUANTIZED:
         if kv is None:
-            kv = alloc_kv_cache(n_layers, b, seq, cfg.num_heads, cfg.head_dim,
+            kv = alloc_kv_cache(n_layers, b, seq, p.layers[0].num_heads, cfg.head_dim,
                                 dtype=cond_embeds.dtype, chunk=bucket, device=cond_embeds.device)
         return run_prefill(kv), kv
     compact = torch.empty((2, n_layers, b, n, hd), dtype=cond_embeds.dtype,
@@ -346,6 +389,7 @@ def init_decode_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tenso
     (``decode_graph.refill_state``), so that its graph replays the new
     request. Returns ``into`` then."""
     attn = resolve_attn(attn)
+    check_tensor_parallel(p, attn)
     b, c, _ = cond_embeds.shape
     p_len = check_prompt(prompt_ids, max_new_tokens)
     if prompt_ids is not None:
@@ -410,7 +454,7 @@ def step_body(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
     ids = state.last_token
     gen_index = state.step_t - 1
     dtype = p.cond_embed.dtype
-    h, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
     lin_e = lin_dispatch(wq_layers is not None)
     # the fed token was generated at gen_index and sits at absolute
     # position cond_length + gen_index
@@ -423,12 +467,13 @@ def step_body(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
     if state.attn == "megakernel":
         pos = cfg.cond_length + state.step - 1
         x = decode_step_megakernel(x, mega_layers, state.kv, pos, pos + 1,
-                                   num_heads=h, ln_eps=cfg.ln_eps)
+                                   num_heads=cfg.num_heads, ln_eps=cfg.ln_eps)
     else:
         cur_len = (write_pos[0] + 1).to(torch.int32)
         for layer_idx, layer in enumerate(p.layers):
             mats = layer if wq_layers is None else wq_layers[layer_idx]
-            q, k, v = lin_e(x, mats.qkv).chunk(3, dim=-1)
+            h = layer.num_heads
+            q, k, v = col_lin(x, mats.qkv, layer.tp_group, lin_e).chunk(3, dim=-1)
             o = _step_attention(state, layer_idx, write_pos, cur_len,
                                 q.reshape(b, h, hd).contiguous(), k, v)
             x = layer.after_attention(x, o.reshape(b, h * hd), mats, lin_e)
@@ -495,6 +540,7 @@ def decode_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
             state.attn != "megakernel") and (not sampling or decode_graph.generator_capturable()):
         key = (early_exit, sampling, top_k, top_p, temperature, id(wq_layers))
         if state.graph is None:
+            check_capture(p)
             state.graph = decode_graph.StepGraph(
                 lambda: step_body(p, cfg, state, **step_kw), state.tokens.device,
                 generator=state.generator if sampling else None, key=key)
@@ -526,6 +572,7 @@ def decode_loop(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *, max_new
     ``attn="megakernel"`` they are packed for K5 once, here (prefill ran
     on the originals)."""
     check_wq(state.attn, wq)
+    check_tensor_parallel(p, state.attn, wq or wq_layers is not None)
     if wq and wq_layers is None:
         wq_layers = quantize_opt_layers(p.layers)
     mega_layers = pack_megakernel_layers(p.layers) if state.attn == "megakernel" else None
@@ -543,11 +590,12 @@ def generate(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, *,
              max_new_tokens: int, sampling: bool = False, top_k: int = 50,
              top_p: float = 0.95, temperature: float = 1.0, bucket: int = 512,
              generator: Optional[torch.Generator] = None, attn: str = "pallas",
-             wq: bool = False, prompt_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+             wq: bool = False, prompt_ids: Optional[torch.Tensor] = None,
+             graph: bool = True) -> torch.Tensor:
     """Autoregressive generation -> (B, max_new_tokens) int64, eos-filled
     past the stop point. Attention is K1, K2 or K3 on every step, or the
     whole layer stack is K5 (see the module docstring for ``attn`` and
-    ``wq``). ``prompt_ids`` (B, P): continue from a token prefix in
+    ``wq``; ``graph=False``: the eager loop on a card). ``prompt_ids`` (B, P): continue from a token prefix in
     stream order (element 0 the bos slot), prefilled in one causal pass
     (``prefill_with_prompt``) and echoed at the front of the output: mesh
     completion (``models/meshanything.py::complete``)."""
@@ -555,4 +603,5 @@ def generate(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, *,
     state = init_decode_state(p, cfg, cond_embeds, max_new_tokens=max_new_tokens,
                               bucket=bucket, generator=generator, attn=attn,
                               prompt_ids=prompt_ids, **kw)
-    return decode_loop(p, cfg, state, max_new_tokens=max_new_tokens, wq=wq, **kw).tokens
+    return decode_loop(p, cfg, state, max_new_tokens=max_new_tokens, wq=wq, graph=graph,
+                       **kw).tokens

@@ -14,6 +14,10 @@ walk reads keys by name: a key it needs and cannot find raises
 stderr. The port's own checkpoints (``save_native`` / ``load_native``:
 one ``torch.save`` of the parameters by name, read with
 ``torch.load(weights_only=True)``) take the place of JAX's orbax ones.
+Over a (data, model) mesh they stay full tensors by name: the model
+group's shards are gathered and rank 0 writes; every rank reads the file
+and keeps its shard (JAX ``load_orbax_sharded``), so a checkpoint of one
+mesh loads into any other, or into one process.
 
 The JAX package keeps parameters as a nested dict whose layer stacks
 carry a leading L axis (``stack_layer_params``) and whose linear
@@ -40,6 +44,7 @@ from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from meshanything_tpu_torch.config import (
@@ -49,6 +54,7 @@ from meshanything_tpu_torch.config import (
     ShapeOPTConfig,
 )
 from meshanything_tpu_torch.models.meshanything import MeshAnything
+from meshanything_tpu_torch.parallel.mesh import gather_tensors, shard_params
 
 
 def _leaf_paths(tree, prefix=()) -> set:
@@ -665,24 +671,36 @@ def load_reference_checkpoint(path: str, cfg: MeshAnythingConfig, *, device=None
 NATIVE_FILE = "params.pt"
 
 
-def save_native(model: MeshAnything, path: str) -> str:
+def save_native(model: MeshAnything, path: str, mesh=None) -> str:
     """Save the model's parameters by name (one ``torch.save`` of a dict,
-    written atomically) into the directory ``path``; returns the file."""
-    os.makedirs(path, exist_ok=True)
+    written atomically) into the directory ``path``; returns the file.
+    With ``mesh`` (``parallel/mesh.py``; every rank calls) ``model`` is
+    the rank's local module: the full tensors are gathered over the model
+    group and rank 0 writes them."""
     out = os.path.join(path, NATIVE_FILE)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    torch.save({name: p.detach().cpu() for name, p in model.named_parameters()}, tmp)
-    os.replace(tmp, out)
+    params = {name: p.detach() for name, p in model.named_parameters()}
+    if mesh is not None:
+        params = gather_tensors(mesh, params)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(path, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        torch.save({name: p.cpu() for name, p in params.items()}, tmp)
+        os.replace(tmp, out)
+    if mesh is not None and dist.is_initialized():
+        dist.barrier()          # the file is whole before any rank reads it
     return out
 
 
 @torch.no_grad()
 def load_native(path: str, cfg: MeshAnythingConfig, *, device=None,
-                dtype: Optional[torch.dtype] = None) -> MeshAnything:
+                dtype: Optional[torch.dtype] = None, mesh=None) -> MeshAnything:
     """A checkpoint of ``save_native`` (the directory ``path``) -> the
     model on ``device`` in ``dtype`` (default: the saved one). Every
     parameter is matched by name, never by order; a name missing on
-    either side, or a shape that differs, raises ``ValueError``."""
+    either side, or a shape that differs, raises ``ValueError``. With
+    ``mesh`` the rank's local module (``shard_params``) of the full one."""
+    if mesh is not None:
+        return shard_params(mesh, load_native(path, cfg, device=device, dtype=dtype))
     saved = torch.load(os.path.join(path, NATIVE_FILE), map_location="cpu", weights_only=True)
     if dtype is None:
         dtype = next(iter(saved.values())).dtype

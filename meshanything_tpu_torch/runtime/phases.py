@@ -221,13 +221,15 @@ class PhaseRunner:
     tier's kernel libraries and captures a batch size's graphs before
     the first request; ``aot_dir`` makes a directory the libraries'
     store (``runtime/aot.py``), which a later process finds them in.
+    ``place`` names a rank past the first of a multi-process run ("rank 1
+    of 2 (--multihost)"): the budget's error starts with it.
     """
 
     def __init__(self, model, cfg: MeshAnythingConfig, *, bucket: int = 512,
                  attn: str = "auto", early_exit: bool = True, lookahead: "int | str" = 0,
                  wq: bool = False, aot_dir: Optional[str] = None,
                  adaptive_windows: tuple = (8, 16), adaptive_check_iters: int = 64,
-                 graph: bool = True):
+                 graph: bool = True, place: Optional[str] = None):
         from meshanything_tpu_torch.models import lookahead as la_mod
         from meshanything_tpu_torch.models import shape_opt as opt_mod
 
@@ -243,6 +245,8 @@ class PhaseRunner:
         if lookahead:
             la_mod.check_attn(self.attn)
         opt_mod.check_wq(self.attn, wq)
+        opt_mod.check_tensor_parallel(model.opt, self.attn, wq)
+        self.place = place
         self.early_exit = early_exit
         self.lookahead = lookahead
         self.adaptive_windows = tuple(adaptive_windows)
@@ -349,8 +353,10 @@ class PhaseRunner:
                     device=self.device, prompt_tokens=prompt_tokens, keep=self._keeps(),
                     kept_bytes=sum(kept_state_bytes(self._kept[k].state) for k in others))
                 return
-            except ValueError:
+            except ValueError as e:
                 if not others:
+                    if self.place:
+                        raise ValueError(f"{self.place}: {e}") from None
                     raise
                 del self._kept[others[0]]
                 torch.cuda.empty_cache()      # the dropped graphs' pools go back to the card

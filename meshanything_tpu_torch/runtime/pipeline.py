@@ -99,9 +99,9 @@ class InferencePipeline:
                  batch_size: int = 1, bucket: int = 512, attn: str = "auto",
                  lookahead: "int | str" = 0, wq: bool = False,
                  timer: PhaseTimer | None = None, graph: bool = True,
-                 aot_dir: Optional[str] = None):
+                 aot_dir: Optional[str] = None, place: Optional[str] = None):
         self.runner = PhaseRunner(model, cfg, bucket=bucket, attn=attn, lookahead=lookahead,
-                                  wq=wq, graph=graph, aot_dir=aot_dir)
+                                  wq=wq, graph=graph, aot_dir=aot_dir, place=place)
         self.batch_size = batch_size
         self.timer = timer
         self.device = self.runner.device

@@ -550,6 +550,11 @@ def main(argv=None):
     enable_compile_cache()
     args = get_args(argv)
     check_ported(args)
+    if args.multihost:
+        # the CLI's folder-run flag; a server over several processes
+        # (replicas behind a router) is ROADMAP Queue 1 item 8
+        raise NotImplementedError("--multihost in serving: not ported yet (the server runs "
+                                  "one process; --multihost is the CLI's folder run)")
     device = resolve_device(args.device)
     cfg = build_config(args)
     model = load_params(args, cfg, device)

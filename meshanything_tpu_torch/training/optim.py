@@ -31,6 +31,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from meshanything_tpu_torch.parallel.collectives import all_reduce_sum
+
 # the update's temporaries (at most two of a group's size) cover this many
 # elements at a time: 128 MiB of f32, against ~1.9 GB for the 350M model whole
 GROUP_NUMEL = 1 << 25
@@ -80,18 +82,32 @@ class Optimizer:
                         nu={n: torch.zeros_like(p) for n, p in named.items()})
 
     @torch.no_grad()
-    def step_(self, model: nn.Module, state: OptState) -> torch.Tensor:
+    def step_(self, model: nn.Module, state: OptState, *, group=None,
+              sharded=frozenset()) -> torch.Tensor:
         """One update of ``model``'s parameters in place from their
         ``.grad`` (a missing grad counts as zeros, as JAX's grad of an
         unused leaf is), then every grad set to None. Returns the global
-        grad norm before the clip, on the device (no host read)."""
+        grad norm before the clip, on the device (no host read).
+
+        ``group``: ``model`` is a tensor-parallel shard (the model axis);
+        the parameters named in ``sharded`` hold a slice of their leaf, so
+        the norm sums their squares over the group and counts each
+        replicated leaf once. The update itself is elementwise: a shard's
+        update is the slice of the whole leaf's."""
         names, params, grads = [], [], []
         for name, p in model.named_parameters():
             names.append(name)
             params.append(p)
             grads.append(torch.zeros_like(p) if p.grad is None else p.grad)
             p.grad = None
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = torch._foreach_norm(grads)
+        if group is None:
+            norm = torch.linalg.vector_norm(torch.stack(norms))
+        else:
+            squares = torch.stack(norms) ** 2
+            split = torch.tensor([n in sharded for n in names], device=squares.device)
+            norm = torch.sqrt(squares[~split].sum()
+                              + all_reduce_sum(squares[split].sum(), group))
         # optax: below the limit the grads pass as they are, else (g / norm) * limit
         under = norm < self.clip_norm
         torch._foreach_div_(grads, torch.where(under, 1.0, norm))

@@ -142,8 +142,7 @@ def test_cli_writes_the_jax_pipelines_obj_bytes(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--attn", "xla"],
                                    ["--fast", "--attn", "xla"],
-                                   ["--complete_from", "p.obj", "--attn", "xla"],
-                                   ["--multihost"]])
+                                   ["--complete_from", "p.obj", "--attn", "xla"]])
 def test_cli_refuses_what_is_not_ported(flags):
     args = cli.get_args(["--input_path", "x.npy", "--input_type", "pc_normal", *flags,
                          "--random_weights"])

@@ -279,8 +279,8 @@ def test_token_losses_match_jax():
 
 
 def test_contrastive_and_psnr_match_jax():
-    """The local contrastive loss and PSNR against JAX; the grouped
-    contrastive loss (JAX's axis_name) raises."""
+    """The local contrastive loss and PSNR against JAX (the grouped form,
+    JAX's axis_name, is held in test_torch_parallel.py)."""
     rng = np.random.default_rng(1)
     a, b = (rng.normal(size=(5, 8)).astype(np.float32) for _ in range(2))
     want = float(jlosses.contrastive_loss(jnp.asarray(a), jnp.asarray(b), jnp.float32(7.0)))
@@ -290,9 +290,6 @@ def test_contrastive_and_psnr_match_jax():
     np.testing.assert_allclose(float(losses.compute_psnr(torch.from_numpy(a), torch.from_numpy(b))),
                                float(jlosses.compute_psnr(jnp.asarray(a), jnp.asarray(b))),
                                rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        losses.contrastive_loss(torch.from_numpy(a), torch.from_numpy(b), torch.tensor(7.0),
-                                group=object())
 
 
 def _cube(side=1.0):
@@ -459,8 +456,9 @@ def test_run_training_loop_resume(tmp_path):
 
 def test_main_flags_parse_as_jax(monkeypatch, tmp_path):
     """``main`` hands run_training what JAX's main hands its own for the
-    same flags (plus the device); --dp/--tp other than 1 raise "not
-    ported yet", and --device cuda without a card raises."""
+    same flags (plus the device, and no mesh on one process); --dp/--tp
+    whose product is not the world's size raise, and --device cuda
+    without a card raises."""
     import meshanything_tpu.parallel.mesh as jmesh
 
     seen = {}
@@ -482,9 +480,10 @@ def test_main_flags_parse_as_jax(monkeypatch, tmp_path):
     jopt, topt = jkw.pop("optimizer"), tkw.pop("optimizer")
     assert (topt.lr, topt.steps) == (0.01, 7) and jopt is not None
     assert tkw.pop("device") == torch.device("cpu")
+    assert tkw.pop("mesh") is None
     assert tkw == jkw
     np.testing.assert_array_equal(next(targs[1])[1], next(jargs[2])[1])   # the batch stream
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="needs 2 ranks, the world has 1"):
         ttrain.main(["--dp", "2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
