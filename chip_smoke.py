@@ -174,6 +174,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
      DP and TP passes of phase 15 again over NCCL, one rank a card, the TP
      decode and lookahead captured as CUDA graphs, their tokens bit-equal to
      the same rank's eager runs; with one card a line says it did not run.
+  16. recon (``recon_phase``): ``miche_cli`` at the full perceiver width on
+     seeded random weights, ``--encode-only``, then the reconstruction at
+     depth 7 (the occupancy bias set to minus the median logit of a first
+     pass, printed), its fenced query and marching seconds, faces and peak
+     bytes; a 10,000-query chunk card against CPU (RECON_CHUNK_TOL).
+  17. diffusion (``diffusion_phase``): the CLIP ViT-L/14 and text towers at B
+     1 and 2 (card against CPU, CLIP_TOL), the UDT's CFG forward eager and
+     replayed, DDIM 50 steps twice bit-equal, Karras 32, image- and
+     text-to-shape at B=1, ``sample_surface_torch`` against numpy. Neither
+     phase may launch a kernel of K1-K5 / T1-T5.
 
 Before the last line it prints {"kernels": [...]} (K1-K5 and T1-T5, each
 with its launches on the main, checkpoint, serving and parallel paths and the train phase's decode, its time, its plain
@@ -3124,10 +3134,341 @@ def parallel_nccl_phase(torch, card: str) -> dict:
     return _sum_counts([{"counts": c} for c in launches.values()])
 
 
+RECON_CHUNK_TOL = 1e-4     # recon: a 10,000-query chunk, card against CPU, f32 with TF32 off:
+                           # |card - cpu| within this times max(1, largest |cpu logit|)
+CLIP_TOL = 1e-4            # diffusion: the CLIP embeddings card against CPU, the same way
+DIFF_DEPTH = 6             # sample_shapes_*'s octree depth (its default); cut first if the
+                           # recon and diffusion phases run over their 90 s
+SURFACE_FACES = 99_904     # sample_surface_torch's mesh: a UV sphere, 224 bands x 224 segments
+
+
+def _kernel_launches(wrappers: dict) -> int:
+    return sum(fn.launches for fn in wrappers.values())
+
+
+def _tf32(torch) -> bool:
+    return bool(torch.backends.cuda.matmul.allow_tf32)
+
+
+def _torus_surface(path: str, n: int = 8192) -> str:
+    """A seeded torus point cloud with its normals (.npz, points + normals)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    u, v = rng.uniform(0, 2 * np.pi, (2, n))
+    big, small = 0.6, 0.25
+    normals = np.stack([np.cos(u) * np.cos(v), np.sin(u) * np.cos(v), np.sin(v)], -1)
+    centers = np.stack([big * np.cos(u), big * np.sin(u), np.zeros(n)], -1)
+    np.savez(path, points=(centers + small * normals).astype(np.float32),
+             normals=normals.astype(np.float32))
+    return path
+
+
+def query_flops(cfg, queries: int) -> float:
+    """FLOPs of the occupancy decoder over ``queries`` points (2 a
+    multiply-add): the query projection, the cross-attention block (q,
+    proj, the 4x MLP, the scores and P.V over the latents) and the output;
+    the latents' k/v projection once a QUERY_BLOCK."""
+    from meshanything_tpu_torch.models.perceiver import QUERY_BLOCK
+
+    w, n_lat = cfg.width, cfg.total_latents
+    per_query = 2 * (cfg.fourier_dim * w + 10 * w * w + 2 * n_lat * w + w)
+    blocks = -(-queries // QUERY_BLOCK)
+    return float(queries * per_query + blocks * 2 * n_lat * 2 * w * w)
+
+
+def recon_phase(torch, wrappers: dict, card: str) -> None:
+    """Phase recon: ``miche_cli`` at the full perceiver width (768, 8 + 16
+    layers) on seeded random weights (seed 0, f32): ``--encode-only`` on a
+    seeded 8192-point torus through ``main``, then the reconstruction at
+    the CLI's defaults (depth 7: 129^3 = 2,146,689 queries in chunks of
+    10,000, bounds 1.1) through ``get_args`` / ``load_perceiver`` /
+    ``run``, after one change that random weights need: the occupancy
+    output bias set to minus the median logit of a first query pass over
+    the same grid (printed as ``bias_set_to``), so about half the grid is
+    inside and the OBJ has faces. Prints the fenced query seconds, the
+    marching seconds, the faces and the peak bytes; holds one 10,000-query
+    chunk card against CPU (RECON_CHUNK_TOL, signs equal above it). No
+    kernel of K1-K5 / T1-T5 may launch."""
+    import copy
+
+    import numpy as np
+
+    from meshanything_tpu_torch import miche_cli
+    from meshanything_tpu_torch.config import PerceiverConfig
+    from meshanything_tpu_torch.models import perceiver as per
+    from meshanything_tpu_torch.runtime import recon
+
+    launches = _kernel_launches(wrappers)
+    failures = []
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = PerceiverConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        surface = _torus_surface(os.path.join(tmp, "torus.npz"))
+        common = ["--input", surface, "--random_weights", "--device", "cuda"]
+        latents_path = os.path.join(tmp, "latents.npy")
+        t0 = time.perf_counter()
+        miche_cli.main([*common, "--encode-only", "--out", latents_path])
+        encode_s = time.perf_counter() - t0
+        latents = np.load(latents_path)
+        emit("recon_encode_only", seconds=encode_s, shape=list(latents.shape),
+             finite=bool(np.isfinite(latents).all()), card=card)
+        if latents.shape != (1, cfg.num_latents, cfg.embed_dim) or not np.isfinite(latents).all():
+            failures.append(("encode-only latents", latents.shape))
+
+        obj = os.path.join(tmp, "recon.obj")
+        args = miche_cli.get_args([*common, "--out", obj])
+        perceiver = miche_cli.load_perceiver(args, cfg, dev)
+        surf = miche_cli.load_surface(args.input, args.num_points, args.seed)
+        surf[:, 2] *= -1                          # as run() flips it
+        with torch.no_grad():
+            feats = per.encode_latents(perceiver, cfg, torch.from_numpy(surf)[None].to(dev))
+            decoded = per.decode_latents(perceiver, cfg,
+                                         per.encode_kl_mode(perceiver, feats[:, 1:]))
+        xyz, _, _, _ = recon.grid(args.bounds, args.octree_depth)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = recon.occupancy_logits(perceiver, cfg, decoded, xyz, args.num_chunks)
+        first_s = time.perf_counter() - t0
+        median = float(np.median(first))
+        with torch.no_grad():
+            perceiver.geo_decoder.output_proj.bias.fill_(-median)
+        torch.cuda.reset_peak_memory_stats()
+        before_bytes = torch.cuda.memory_allocated()
+        record = miche_cli.run(args, perceiver, cfg)
+        peak = torch.cuda.max_memory_allocated()
+        with open(obj, "rb") as fh:
+            text = fh.read()
+        obj_faces, obj_verts = text.count(b"\nf "), text.count(b"\nv ") + text.startswith(b"v ")
+        flops = query_flops(cfg, record["queries"])
+        emit("recon", depth=args.octree_depth, queries=record["queries"],
+             num_chunks=args.num_chunks, bounds=args.bounds, first_pass_query_s=first_s,
+             crosses_without_bias=bool(first.min() < 0 < first.max()), bias_set_to=-median,
+             query_s=record["query_s"], march_s=record["march_s"], faces=record["faces"],
+             obj_faces=obj_faces, obj_vertices=obj_verts, peak_bytes=peak,
+             allocated_before_bytes=before_bytes, query_tflop=flops / 1e12,
+             query_tflops_per_s=flops / record["query_s"] / 1e12, f32_peak_tflops=67.0,
+             tf32=_tf32(torch), card=card)
+        if not record["faces"] > 0 or obj_faces != record["faces"] or obj_verts == 0:
+            failures.append(("recon OBJ", record["faces"], obj_faces, obj_verts))
+
+        mid = len(xyz) // 2 - args.num_chunks // 2
+        chunk = xyz[mid:mid + args.num_chunks]
+        card_logits = recon.occupancy_logits(perceiver, cfg, decoded, chunk, args.num_chunks)
+        cpu = copy.deepcopy(perceiver).cpu()
+        cpu_logits = recon.occupancy_logits(cpu, cfg, decoded.cpu(), chunk, args.num_chunks)
+        err = float(np.abs(card_logits - cpu_logits).max())
+        tol = RECON_CHUNK_TOL * max(1.0, float(np.abs(cpu_logits).max()))
+        big = np.abs(cpu_logits) > tol
+        signs = bool((np.sign(card_logits[big]) == np.sign(cpu_logits[big])).all())
+        emit("recon_chunk_check", queries=len(chunk), max_abs_err=err, tolerance=tol,
+             signs_equal_above_tolerance=signs, tf32=_tf32(torch))
+        if err > tol or not signs:
+            failures.append(("recon chunk card vs cpu", err, tol, signs))
+    launched = _kernel_launches(wrappers) - launches
+    emit("recon_done", seconds=time.perf_counter() - t_phase, kernel_launches=launched, card=card)
+    if launched:
+        failures.append(("a kernel launched on the recon path", launched))
+    if failures:
+        raise AssertionError(f"recon: {failures}")
+
+
+def udt_flops(cfg, batch: int, n_cond: int = 1) -> float:
+    """FLOPs of one UDT forward over [t ‖ context ‖ x] (2 a multiply-add):
+    2L + 1 blocks (qkv, proj and the 4x MLP: 12 w^2 a token; scores and
+    P.V: 4 n w a token), the L skip projections (2 w^2 a token) and the
+    input / output / context projections."""
+    w, n = cfg.width, 1 + n_cond + cfg.n_ctx
+    blocks = 2 * cfg.layers + 1
+    per_token = blocks * (24 * w * w + 4 * n * w) + cfg.layers * 4 * w * w
+    io = (2 * cfg.n_ctx * w * (cfg.input_channels + cfg.output_channels)
+          + 2 * n_cond * cfg.context_dim * w)
+    return float(batch * (n * per_token + io))
+
+
+def _uv_sphere(np, bands: int = 224, segments: int = 224):
+    """A unit UV sphere, outward faces: 2 x ``segments`` x (``bands`` - 1)
+    of them (SURFACE_FACES)."""
+    theta = np.linspace(0, np.pi, bands + 1)[1:-1]
+    phi = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+    ring = np.stack([np.sin(theta)[:, None] * np.cos(phi), np.sin(theta)[:, None] * np.sin(phi),
+                     np.cos(theta)[:, None] + 0 * phi], -1).reshape(-1, 3)
+    v = np.concatenate([[[0, 0, 1.0]], ring, [[0, 0, -1.0]]])
+    s, last = np.arange(segments), len(v) - 1
+    faces = [np.stack([np.zeros(segments, int), 1 + s, 1 + (s + 1) % segments], -1)]
+    for r in range(bands - 2):
+        a, b = 1 + r * segments + s, 1 + r * segments + (s + 1) % segments
+        faces += [np.stack([a, a + segments, b], -1), np.stack([b, a + segments, b + segments], -1)]
+    base = 1 + (bands - 2) * segments
+    faces.append(np.stack([base + s, np.full(segments, last), base + (s + 1) % segments], -1))
+    return v, np.concatenate(faces)
+
+
+def _embed_err(a, b) -> float:
+    """|card - cpu| over max(1, largest |cpu|)."""
+    b = b.float()
+    return float((a.float().cpu() - b).abs().max() / max(1.0, float(b.abs().max())))
+
+
+def diffusion_phase(torch, wrappers: dict, card: str) -> None:
+    """Phase diffusion, at the published widths on seeded random weights
+    (N(0, 0.02) CLIP, the UDT's init_scale/sqrt(width) linears), f32, TF32
+    off: the CLIP ViT-L/14 image tower (224 px, width 1024, 24 layers) and
+    text tower (width 768, 12 layers, 77 positions) at B = 1 and 2 (ms a
+    call; the image and text embeddings card against CPU within CLIP_TOL);
+    the UDT at ``DiffusionConfig()`` (ms of a CFG forward at B = 1, the
+    50-step DDIM sample at CFG 3.0 twice from one generator, bit-equal, ms a
+    step; a 32-step Karras sample); ``sample_shapes_from_image`` and
+    ``sample_shapes_from_text`` end to end at B = 1 with the full-width
+    perceiver (seconds a shape, octree depth DIFF_DEPTH); and
+    ``sample_surface_torch`` at 4096 samples on a SURFACE_FACES-face sphere
+    against the numpy sampler's time. No kernel of K1-K5 / T1-T5 may
+    launch."""
+    import copy
+    import math
+
+    import numpy as np
+
+    from meshanything_tpu_torch.config import PerceiverConfig
+    from meshanything_tpu_torch.geometry import sample_surface_torch, sample_surface_with_normals
+    from meshanything_tpu_torch.models import clip_cond as cc
+    from meshanything_tpu_torch.models import clip_diffuser as cd
+    from meshanything_tpu_torch.models import diffusion as dm
+    from meshanything_tpu_torch.runtime.checkpoint import init_random_perceiver, randomize_
+
+    launches = _kernel_launches(wrappers)
+    failures = []
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    tcfg, vcfg, dcfg, pcfg = (cc.CLIPTextConfig(), cc.CLIPVisionConfig(), dm.DiffusionConfig(),
+                              PerceiverConfig())
+    text = randomize_(cc.CLIPTextTower(tcfg, device=dev), gen)
+    vision = randomize_(cc.CLIPVisionTower(vcfg, device=dev), gen)
+    image = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 240, 320)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.integers(1, 49406, (2, tcfg.max_positions))).to(dev)
+    ids[:, 0] = 49406                            # bos
+    ids[0, 9:] = ids[1, 20:] = tcfg.eos_token_id  # eos, and eos as the pad
+
+    with torch.no_grad():
+        towers = {}
+        for b in (1, 2):
+            pixels = cc.preprocess_image(image[:b], vcfg.image_size)
+            for name, run in (("image", lambda: vision.features(pixels)),
+                              ("text", lambda: text.features(ids[:b]))):
+                run()
+                towers[f"{name}_ms_b{b}"] = _events_ms(torch, run, 10)
+        cpu_v, cpu_t = copy.deepcopy(vision).cpu(), copy.deepcopy(text).cpu()
+        img_err = _embed_err(cc.image_embedding(vision, image[:1]),
+                             cc.image_embedding(cpu_v, image[:1].cpu()))
+        txt_err = _embed_err(cc.text_embedding(text, ids[:1]),
+                             cc.text_embedding(cpu_t, ids[:1].cpu()))
+        del cpu_v, cpu_t
+    emit("diffusion_clip", **towers, image_err=img_err, text_err=txt_err, tolerance=CLIP_TOL,
+         image_input=[240, 320], tf32=_tf32(torch), card=card)
+    if img_err > CLIP_TOL or txt_err > CLIP_TOL:
+        failures.append(("clip card vs cpu", img_err, txt_err))
+
+    udt = randomize_(dm.UDTDenoiser(dcfg, device=dev), gen,
+                     dcfg.init_scale * math.sqrt(1.0 / dcfg.width))
+    with torch.no_grad():
+        cond = cc.image_embedding(vision, image[:1])
+        x = torch.randn((2, dcfg.n_ctx, dcfg.input_channels), generator=gen, device=dev)
+        t2 = torch.full((2,), 500, device=dev)
+        c2 = torch.cat([torch.zeros_like(cond), cond])
+        eager = udt(x, t2, c2)
+        cfg_forward_ms = _events_ms(torch, lambda: udt(x, t2, c2), 10)
+        # the same forward captured once and replayed: its device time, no host launches
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            udt(x, t2, c2)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            replayed = udt(x, t2, c2)
+        cfg_forward_graph_ms = _events_ms(torch, graph.replay, 10)
+        graph_equal = bool(torch.equal(replayed, eager))
+        del graph
+    shape = (pcfg.num_latents, pcfg.embed_dim)
+    samples, ddim_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples.append(dm.ddim_sample(udt, cond, shape=shape, steps=50, guidance_scale=3.0,
+                                      generator=torch.Generator(device=dev).manual_seed(7)))
+        torch.cuda.synchronize()
+        ddim_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    karras = dm.karras_sample(udt, cond, shape=shape, steps=32, guidance_scale=3.0,
+                              generator=torch.Generator(device=dev).manual_seed(7))
+    torch.cuda.synchronize()
+    karras_s = time.perf_counter() - t0
+    equal = bool(torch.equal(samples[0], samples[1]))
+    finite = bool(torch.isfinite(samples[0]).all() and torch.isfinite(karras).all())
+    emit("diffusion_udt", cfg_forward_ms_b2=cfg_forward_ms,
+         cfg_forward_graph_ms_b2=cfg_forward_graph_ms, graph_equal_eager=graph_equal,
+         cfg_forward_gflop=udt_flops(dcfg, 2) / 1e9, ddim_steps=50, guidance=3.0,
+         ddim_s=ddim_s, ddim_ms_a_step=[s * 20 for s in ddim_s], ddim_bit_equal=equal,
+         karras_steps=32, karras_s=karras_s, finite=finite, tf32=_tf32(torch), card=card)
+    if not equal or not finite:
+        failures.append(("ddim/karras", equal, finite))
+
+    perceiver = init_random_perceiver(pcfg, gen)
+    runs = {"image": lambda g: cd.sample_shapes_from_image(
+                udt, perceiver, pcfg, vision, image[:1], generator=g, octree_depth=DIFF_DEPTH),
+            "text": lambda g: cd.sample_shapes_from_text(
+                udt, perceiver, pcfg, text, ids[:1], generator=g, octree_depth=DIFF_DEPTH)}
+    torch.cuda.reset_peak_memory_stats()
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meshes = run(torch.Generator(device=dev).manual_seed(11))
+        seconds = time.perf_counter() - t0
+        mesh = meshes[0]
+        ok = len(meshes) == 1 and (mesh is None or (
+            np.isfinite(mesh.vertices).all() and mesh.faces.max() < len(mesh.vertices)))
+        emit("diffusion_sample_shapes", cond=name, seconds_a_shape=seconds, depth=DIFF_DEPTH,
+             faces=None if mesh is None else len(mesh.faces), well_formed=bool(ok))
+        if not ok:
+            failures.append(("sample_shapes", name))
+    emit("diffusion_peak", peak_bytes=torch.cuda.max_memory_allocated(),
+         allocated_bytes=torch.cuda.memory_allocated())
+
+    v, f = _uv_sphere(np)
+    vt, ft = torch.from_numpy(v).float().to(dev), torch.from_numpy(f).to(dev)
+    sgen = torch.Generator(device=dev).manual_seed(3)
+    torch_ms = _events_ms(torch, lambda: sample_surface_torch(sgen, vt, ft, 4096), 20)
+    t0 = time.perf_counter()
+    for seed in range(5):
+        sample_surface_with_normals(v, f, 4096, np.random.default_rng(seed))
+    numpy_ms = (time.perf_counter() - t0) / 5 * 1e3
+    pts = sample_surface_torch(sgen, vt, ft, 4096).cpu().numpy()
+    radius = np.linalg.norm(pts[:, :3], axis=1)
+    unit = np.abs(np.linalg.norm(pts[:, 3:], axis=1) - 1).max()
+    outward = float((np.sum(pts[:, 3:] * pts[:, :3], 1) / radius).min())
+    ok = radius.max() <= 1 + 1e-5 and radius.min() > 0.999 and unit < 1e-5 and outward > 0.99
+    emit("diffusion_surface_sampler", faces=len(f), samples=4096, torch_ms=torch_ms,
+         numpy_ms=numpy_ms, radius=[float(radius.min()), float(radius.max())],
+         normal_unit_err=float(unit), min_outward_cos=outward, ok=bool(ok), card=card)
+    if len(f) != SURFACE_FACES or not ok:
+        failures.append(("sample_surface_torch", len(f), ok))
+    launched = _kernel_launches(wrappers) - launches
+    emit("diffusion_done", seconds=time.perf_counter() - t_phase, kernel_launches=launched,
+         card=card)
+    if launched:
+        failures.append(("a kernel launched on the diffusion path", launched))
+    if failures:
+        raise AssertionError(f"diffusion: {failures}")
+
+
 PHASES = ("k4_check", "k1_check", "k23_check", "graph_replay", "device_length", "k1_time",
           "fast_time", "k5_check", "k5_replay", "k5_time", "probe_check", "probe_time",
           "measurement_path", "main_path", "graph_loop", "agreement", "floor", "serving",
-          "train", "checkpoint", "warm_start", "parallel", "parallel_nccl")
+          "train", "checkpoint", "warm_start", "parallel", "parallel_nccl", "recon", "diffusion")
 
 
 def parse_only(argv: list) -> set:
@@ -3287,6 +3628,12 @@ def main(argv=None) -> int:
         for key, n in parallel_nccl_phase(torch, card).items():
             parallel_launches[key] = parallel_launches.get(key, 0) + n
     tick("parallel_nccl")
+    if "recon" in only:
+        recon_phase(torch, wrappers, card)
+    tick("recon")
+    if "diffusion" in only:
+        diffusion_phase(torch, wrappers, card)
+    tick("diffusion")
     if only == set(PHASES):
         print(json.dumps(kernels_line(runs, times, probe_times, probe_launches, worst, roof_gbs,
                                       serving_launches, train_launches, parallel_launches,

@@ -2,8 +2,8 @@
 app's mesh-bbox variant (app.py:105-133) and the watertighting
 pre-normalization (mesh_to_pc.py:6-11).
 
-JAX-free copies of ``normalize_pc_cli``, ``normalize_mesh_app`` and
-``normalize_vertices`` from ``meshanything_tpu/geometry/normalize.py``:
+JAX-free copies of ``normalize_pc_cli``, ``normalize_mesh_app``,
+``normalize_vertices``, ``discretize`` and ``undiscretize`` from ``meshanything_tpu/geometry/normalize.py``:
 the port cannot import the JAX package, whose ``__init__`` imports
 ``jax.numpy``.
 """
@@ -62,3 +62,21 @@ def normalize_vertices(vertices: np.ndarray, scale: float = 0.9):
     center = (bbmin + bbmax) * 0.5
     factor = 2.0 * scale / (bbmax - bbmin).max()
     return (vertices - center) * factor, center, factor
+
+
+def discretize(t: np.ndarray, low: float = -0.5, high: float = 0.5,
+               num_discrete: int = 128) -> np.ndarray:
+    """Continuous coords in [low, high) -> bins 0..num_discrete-1 (floor
+    quantization, the inverse of ``undiscretize``; the reference ships only
+    the inverse, meshanything.py:214-223)."""
+    t = (np.asarray(t, dtype=np.float64) - low) / (high - low)
+    t = t * num_discrete
+    return np.clip(t.astype(np.int64), 0, num_discrete - 1)
+
+
+def undiscretize(t: np.ndarray, low: float = -0.5, high: float = 0.5,
+                 num_discrete: int = 128) -> np.ndarray:
+    """Bins -> continuous coords (meshanything.py:214-223): t/N*(high-low)+low."""
+    t = np.asarray(t, dtype=np.float32)
+    t = t / num_discrete
+    return t * (high - low) + low

@@ -54,6 +54,7 @@ from meshanything_tpu_torch.config import (
     ShapeOPTConfig,
 )
 from meshanything_tpu_torch.models.meshanything import MeshAnything
+from meshanything_tpu_torch.models.perceiver import Perceiver
 from meshanything_tpu_torch.parallel.mesh import gather_tensors, shard_params
 
 
@@ -125,6 +126,25 @@ def _stacked_lengths(tree) -> set:
     return {np.shape(tree)[0]}
 
 
+def fill_from_jax_numpy(module: nn.Module, tree: dict) -> nn.Module:
+    """Copy a JAX parameter tree of numpy arrays into ``module`` in place,
+    each leaf cast to its parameter's dtype as it is copied. Raises on a
+    leaf it did not consume and on a parameter it did not fill."""
+    used, filled = set(), set()
+    _fill(module, tree, (), None, used, filled)
+    unused = _leaf_paths(tree) - used
+    if unused:
+        raise ValueError(f"JAX leaves not consumed: {sorted('/'.join(p) for p in unused)}")
+    unfilled = [n for n, p in module.named_parameters() if id(p) not in filled]
+    if unfilled:
+        raise ValueError(f"parameters not filled from the JAX tree: {unfilled}")
+    return module
+
+
+def _leaf_dtype(leaf) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, np.asarray(leaf).dtype)).dtype
+
+
 def params_from_jax_numpy(tree: dict, cfg: MeshAnythingConfig, *, device=None,
                           dtype: Optional[torch.dtype] = None) -> MeshAnything:
     """JAX parameter tree as numpy arrays
@@ -132,18 +152,39 @@ def params_from_jax_numpy(tree: dict, cfg: MeshAnythingConfig, *, device=None,
     -> the port's ``MeshAnything`` module, made on ``device`` (default the
     CPU) in ``dtype`` (default the tree's) and filled leaf by leaf, each
     leaf cast as it is copied (as JAX's ``to_device_tree`` casts)."""
-    if dtype is None:
-        dtype = torch.from_numpy(np.empty(0, np.asarray(tree["opt"]["cond_embed"]).dtype)).dtype
-    model = MeshAnything(cfg, device=device or "cpu", dtype=dtype)
-    used, filled = set(), set()
-    _fill(model, tree, (), None, used, filled)
-    unused = _leaf_paths(tree) - used
-    if unused:
-        raise ValueError(f"JAX leaves not consumed: {sorted('/'.join(p) for p in unused)}")
-    unfilled = [n for n, p in model.named_parameters() if id(p) not in filled]
-    if unfilled:
-        raise ValueError(f"parameters not filled from the JAX tree: {unfilled}")
-    return model
+    dtype = dtype or _leaf_dtype(tree["opt"]["cond_embed"])
+    return fill_from_jax_numpy(MeshAnything(cfg, device=device or "cpu", dtype=dtype), tree)
+
+
+def perceiver_from_jax_numpy(tree: dict, cfg: PerceiverConfig, *, device=None,
+                             dtype: Optional[torch.dtype] = None) -> Perceiver:
+    """The perceiver alone: JAX's ``init_perceiver_params`` tree (or
+    ``convert_perceiver``'s) -> the port's ``Perceiver``."""
+    dtype = dtype or _leaf_dtype(tree["query"])
+    return fill_from_jax_numpy(Perceiver(cfg, device=device or "cpu", dtype=dtype), tree)
+
+
+def udt_from_jax_numpy(tree: dict, cfg, *, device=None,
+                       dtype: Optional[torch.dtype] = None):
+    """JAX's ``diffusion.init_udt_params`` tree -> the port's
+    ``UDTDenoiser`` (``cfg``: a ``models/diffusion.py::DiffusionConfig``)."""
+    from meshanything_tpu_torch.models.diffusion import UDTDenoiser
+
+    dtype = dtype or _leaf_dtype(tree["ln_post"]["scale"])
+    return fill_from_jax_numpy(UDTDenoiser(cfg, device=device or "cpu", dtype=dtype), tree)
+
+
+def dit_from_jax_numpy(tree: dict, width: int, num_heads: int, *, device=None,
+                       dtype: Optional[torch.dtype] = None):
+    """JAX's ``diffusion.init_dit_block`` tree -> the port's ``DiTBlock``
+    (with cross-attention where the tree has ``cross_kv``)."""
+    from meshanything_tpu_torch.models.diffusion import DiTBlock
+
+    context_dim = np.shape(tree["cross_kv"]["w"])[0] if "cross_kv" in tree else None
+    dtype = dtype or _leaf_dtype(tree["ada1"]["w"])
+    block = DiTBlock(width, num_heads, context_dim=context_dim, device=device or "cpu",
+                     dtype=dtype)
+    return fill_from_jax_numpy(block, tree)
 
 
 def _tree_of(module: nn.Module) -> dict:
@@ -185,28 +226,42 @@ def jax_numpy_from_params(model: MeshAnything) -> dict:
 
 
 @torch.no_grad()
+def randomize_(module: nn.Module, generator: torch.Generator, linear_std=0.02) -> nn.Module:
+    """Seeded random values in place, with the JAX initializers' scales (not
+    their random bits): N(0, std) linear weights (``linear_std``: a number,
+    or a function of the linear's name), zero biases, unit layer norms,
+    N(0, 0.02) for every other parameter (tables, queries)."""
+    for prefix, sub in module.named_modules():
+        if isinstance(sub, nn.LayerNorm):
+            sub.weight.fill_(1.0)
+            sub.bias.fill_(0.0)
+        elif isinstance(sub, nn.Linear):
+            std = linear_std(prefix) if callable(linear_std) else linear_std
+            sub.weight.normal_(0.0, std, generator=generator)
+            if sub.bias is not None:
+                sub.bias.zero_()
+        else:
+            for param in sub.parameters(recurse=False):
+                param.normal_(0.0, 0.02, generator=generator)
+    return module
+
+
 def init_random_params(cfg: MeshAnythingConfig, generator: torch.Generator,
                        dtype: torch.dtype = torch.bfloat16) -> MeshAnything:
-    """Seeded random weights on the generator's device, with the JAX
-    initializers' scales (not their random bits): N(0, 0.02) weights and
-    tables, N(0, init_scale/sqrt(width)) perceiver linears, zero biases,
-    unit layer norms."""
-    device = generator.device
-    model = MeshAnything(cfg, device=device, dtype=torch.float32)
+    """Seeded random weights on the generator's device (``randomize_``):
+    N(0, init_scale/sqrt(width)) perceiver linears, N(0, 0.02) the rest."""
+    model = MeshAnything(cfg, device=generator.device, dtype=torch.float32)
     perceiver_std = cfg.perceiver.init_scale * math.sqrt(1.0 / cfg.perceiver.width)
-    for prefix, module in model.named_modules():
-        if isinstance(module, nn.LayerNorm):
-            module.weight.fill_(1.0)
-            module.bias.fill_(0.0)
-        elif isinstance(module, nn.Linear):
-            std = perceiver_std if prefix.startswith("perceiver.") else 0.02
-            module.weight.normal_(0.0, std, generator=generator)
-            if module.bias is not None:
-                module.bias.zero_()
-        else:
-            for param in module.parameters(recurse=False):
-                param.normal_(0.0, 0.02, generator=generator)
+    randomize_(model, generator,
+               lambda name: perceiver_std if name.startswith("perceiver.") else 0.02)
     return model.to(dtype)
+
+
+def init_random_perceiver(cfg: PerceiverConfig, generator: torch.Generator) -> Perceiver:
+    """The perceiver alone in f32 with ``init_random_params``' scales, on the
+    generator's device."""
+    model = Perceiver(cfg, device=generator.device, dtype=torch.float32)
+    return randomize_(model, generator, cfg.init_scale * math.sqrt(1.0 / cfg.width))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,19 @@
 """Wireframe preview renders (reference app.py:27-92): a JAX-free copy of
-the NumPy rasterizer of ``meshanything_tpu/runtime/render.py``.
+``meshanything_tpu/runtime/render.py``, two backends behind one API:
 
-An orthographic projection at the reference's two views (y/z-swapped
-mesh, views (90, 20) and (270, 20) side by side, centered on the mesh
-bounds), painter's-algorithm fill in the reference's brownish-yellow with
-black edges, written straight to PNG (``utils/io.py::write_png``, no
-image library). The JAX package's matplotlib backend is not copied: no
-caller of the port asks for it.
+* ``backend="numpy"`` (default): a vectorized software rasterizer — an
+  orthographic projection at the reference's two views, painter's-
+  algorithm fill in the reference's brownish-yellow with black edges,
+  written straight to PNG (``utils/io.py::write_png``, no image library).
+* ``backend="matplotlib"``: the reference-exact Poly3DCollection path
+  (y/z swap, (0.8, 0.5, 0.2) faces, black 0.5 edges, views (90, 20) and
+  (270, 20) side by side). matplotlib is imported when this backend is
+  asked for; where it is not installed (the H100 machine has none) the
+  call raises ImportError naming the backend, and never falls back to the
+  numpy renderer.
+
+Both produce the same composition: the y/z-swapped mesh, two views side
+by side, centered on the mesh bounds.
 """
 from __future__ import annotations
 
@@ -264,8 +271,41 @@ def _render_numpy(vertices: np.ndarray, faces: np.ndarray, out_path: str,
     return write_png((np.clip(img, 0, 1) * 255).astype(np.uint8), out_path)
 
 
+def _render_matplotlib(vertices, faces, out_path, views, dpi):
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError("wireframe_render(backend='matplotlib') needs matplotlib, which "
+                          "is not installed; backend='numpy' needs nothing") from e
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from mpl_toolkits.mplot3d.art3d import Poly3DCollection
+
+    tri = vertices[faces] if len(faces) else np.zeros((0, 3, 3))
+    fig = plt.figure(figsize=(5 * len(views), 5))
+    for i, (azim, elev) in enumerate(views):
+        ax = fig.add_subplot(1, len(views), i + 1, projection="3d")
+        ax.set_axis_off()
+        ax.add_collection3d(Poly3DCollection(
+            tri,
+            facecolors=(0.8, 0.5, 0.2, 1.0),
+            edgecolors="k",
+            linewidths=0.5,
+        ))
+        ax.set_xlim(-0.5, 0.5)
+        ax.set_ylim(-0.5, 0.5)
+        ax.set_zlim(-0.5, 0.5)
+        ax.view_init(elev=elev, azim=azim)
+    fig.tight_layout(pad=0)
+    fig.savefig(out_path, dpi=dpi, bbox_inches="tight", pad_inches=0)
+    plt.close(fig)
+    return out_path
+
+
 def wireframe_render(vertices: np.ndarray, faces: np.ndarray, out_path: str,
-                     views=((90, 20), (270, 20)), dpi: int = 120) -> str:
+                     views=((90, 20), (270, 20)), dpi: int = 120,
+                     backend: str = "numpy") -> str:
     """Render the two-view wireframe preview PNG (app.py:27-92 parity:
     y/z swap, brownish-yellow faces, black edges, views (90,20) and
     (270,20) side by side, centered on the mesh bounds)."""
@@ -279,5 +319,9 @@ def wireframe_render(vertices: np.ndarray, faces: np.ndarray, out_path: str,
         center = (lo + hi) / 2.0
         scale = max((hi - lo).max(), 1e-12)
         vertices = (vertices - center) / scale            # [-0.5, 0.5]^3
+    if backend == "matplotlib":
+        return _render_matplotlib(vertices, faces, out_path, views, dpi)
+    if backend != "numpy":
+        raise ValueError(f"backend {backend!r}: 'numpy' or 'matplotlib'")
     size = int(5 * dpi)                                   # 5in panels at dpi
     return _render_numpy(vertices, faces, out_path, views, size)

@@ -13,7 +13,7 @@ setup(
                   "meshanything_tpu": ["data/*.json"],
                   # sources of the PyTorch port, compiled at first use: the CUDA kernels
                   # and the headers they include (nvcc), the native geometry (g++)
-                  "meshanything_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "native/*.cpp"]},
+                  "meshanything_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "native/*.cpp", "data/*.json"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
