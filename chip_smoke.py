@@ -395,11 +395,11 @@ def time_k1(torch, da, card: str) -> dict:
     return times
 
 
-def _quantized_cache(torch, gen, bits: int, batch: int, valid_layers=(LAYER,)):
+def _quantized_cache(torch, gen, bits: int, batch: int, valid_layers=(LAYER,), heads: int = H):
     """Random codes in every layer (garbage outside ``valid_layers``),
     scales NaN outside ``valid_layers`` and in (1e-3, ~0.02] / (1e-3, ~0.3]
-    inside, so values are O(1)."""
-    hd = H * D
+    inside, so values are O(1); rows of ``heads`` heads."""
+    hd = heads * D
     if bits == 8:
         values = torch.randint(-127, 128, (2, L, batch, S, hd), generator=gen, device="cuda",
                                dtype=torch.int8)
@@ -2741,7 +2741,8 @@ def check_local_heads(torch, da) -> dict:
     counts of a tensor-parallel rank (8 at tp = 2, 4 at tp = 4; cache rows
     of 1,024 and 512 bytes), head width 64, B 1 and 16: K1 at cur_len
     7459, K4 at W=8 and base 7450 - b, each against its plain version with
-    the checks' tolerances and NaN past the live rows; returns the largest
+    the checks' tolerances and NaN past the live rows; then K2, K3 and the
+    int8/int4 K4 there (``_check_local_quant``). Returns the largest
     errors."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst, failures = {"k1": 0.0, "k4_window": 0.0}, []
@@ -2793,6 +2794,76 @@ def check_local_heads(torch, da) -> dict:
             torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"K1 / the bf16 K4 at a rank's head count disagree: {failures}")
+    worst.update(_check_local_quant(torch, da, gen))
+    return worst
+
+
+def _check_local_quant(torch, da, gen) -> dict:
+    """K2, K3 and the int8/int4 K4 (its tensor-core instances) at a rank's
+    head counts (``LOCAL_HEADS``: int8 rows of 512 and 256 bytes, int4 rows
+    of 64 and 32 plane words, which the int4 unpack takes four at a time),
+    bf16 queries as the model's, B 1 and 16: K2/K3 at cur_len 7459, K4 at
+    W=8 and base 7450 - b, each against its plain version at QUANT_RTOL of
+    each head vector's largest |plain| element, with the scales NaN and the
+    codes garbled past the live rows (bit-equal outputs)."""
+    worst, failures = {"k2": 0.0, "k3": 0.0, "k4_window_quant": 0.0}, []
+    for heads in LOCAL_HEADS:
+        for batch in (1, 16):
+            for bits, key, fn in ((8, "k2", da.decode_attention_int8),
+                                  (4, "k3", da.decode_attention_int4)):
+                values, scales = _quantized_cache(torch, gen, bits, batch, heads=heads)
+                q = torch.randn((batch, heads, D), generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+                cur = CUR_LENS[0]
+                out = fn(q, values, scales, LAYER, cur)
+                scales[:, LAYER, :, :, cur:] = float("nan")
+                _garble(values[:, LAYER, :, cur:], gen)
+                poisoned = fn(q, values, scales, LAYER, cur)
+                plain = da.decode_attention_quant_reference(q, values, scales, LAYER, cur)
+                torch.cuda.synchronize()
+                err, within, held = _held(out, plain, False)
+                ok = within and bool(torch.isfinite(out).all()) and bool(torch.equal(out, poisoned))
+
+                # the int8/int4 K4: fresh live rows, W=8 bf16 queries, the window's codes
+                top = 0.02 if bits == 8 else 0.3
+                scales[:, LAYER] = torch.rand(scales[:, LAYER].shape, generator=gen,
+                                              device="cuda") * top + 1e-3
+                kind = "int8" if bits == 8 else "int4"
+                assert da.mq_kernel_for(values.dtype, D, torch.bfloat16) == "window_quant", kind
+                w, base0 = 8, BASES[0]
+                q4 = torch.randn((batch, w, heads, D), generator=gen, device="cuda",
+                                 dtype=torch.bfloat16)
+                win = torch.empty((2, batch, w, values.shape[-1]), dtype=values.dtype,
+                                  device="cuda")
+                _garble(win, gen)
+                win_s = [torch.rand((batch, 1, w), generator=gen, device="cuda") * top + 1e-3
+                         for _ in range(2)]
+                base = (base0 - torch.arange(batch, device="cuda")).int()
+                args = (q4, values, scales, LAYER, base, win[0], win[1], *win_s)
+                out4 = da.decode_attention_mq(*args)
+                for b, n in enumerate(base.tolist()):
+                    scales[:, LAYER, b, :, n:] = float("nan")
+                    _garble(values[:, LAYER, b, n:], gen)
+                poisoned4 = da.decode_attention_mq(*args)
+                plain4 = da.decode_attention_mq_reference(*args, n_rows=base0)
+                torch.cuda.synchronize()
+                err4, within4, held4 = _held(out4, plain4, False)
+                ok4 = (within4 and bool(torch.isfinite(out4).all())
+                       and bool(torch.equal(out4, poisoned4)))
+                worst[key] = max(worst[key], err)
+                worst["k4_window_quant"] = max(worst["k4_window_quant"], err4)
+                emit("parallel_local_heads_quant", heads=heads, batch=batch, cache=kind,
+                     row_bytes=values.shape[-1] * values.element_size(),
+                     **{key: {"cur_len": cur, "max_abs_err": err, **held, "ok": ok}},
+                     k4_window_quant={"window": w, "base_row0": base0, "max_abs_err": err4,
+                                      **held4, "ok": ok4})
+                if not (ok and ok4):
+                    failures.append((kind, heads, batch, ok, ok4))
+                del values, scales
+                torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"K2 / K3 / the int8/int4 K4 at a rank's head count disagree: "
+                             f"{failures}")
     return worst
 
 
@@ -2855,18 +2926,18 @@ def _references(torch, pp, pc, graph: bool) -> dict:
 
 
 def _rank_results(torch, probe: list, tasks: tuple, tmp: str, backend: str, *extra: str,
-                  timeout: float = 600.0) -> tuple:
-    """Two ranks of ``tools/parallel_probe.py`` running ``tasks`` in order,
-    one process a rank, over ``backend`` -> ({task: each rank's results},
-    the wall seconds)."""
+                  timeout: float = 600.0, world: int = 2) -> tuple:
+    """``world`` ranks of ``tools/parallel_probe.py`` running ``tasks`` in
+    order, one process a rank, over ``backend`` -> ({task: each rank's
+    results}, the wall seconds)."""
     from meshanything_tpu_torch.parallel.launch import run_ranks
 
     t0 = time.perf_counter()
-    run_ranks([*probe, ",".join(tasks), tmp, "--backend", backend, *extra], 2, timeout=timeout,
-              log_dir=tmp)
+    run_ranks([*probe, ",".join(tasks), tmp, "--backend", backend, *extra], world,
+              timeout=timeout, log_dir=tmp)
     wall = time.perf_counter() - t0
     return {task: [torch.load(os.path.join(tmp, f"{task}_rank{r}.pt"), weights_only=False)
-                   for r in range(2)] for task in tasks}, wall
+                   for r in range(world)] for task in tasks}, wall
 
 
 def _check_dp(torch, pp, ref: dict, dp: list, backend: str, failures: list) -> dict:
@@ -2927,7 +2998,8 @@ def _check_tp(torch, pp, ref: dict, tp: list, backend: str, graph: bool, failure
             clocked = {"clocked_ms_a_step": c["seconds"] / c["steps"] * 1e3,
                        "allreduce_share_clocked": c["allreduce_s"] / c["seconds"],
                        "allreduce_calls_a_step": c["allreduce_calls"] / c["steps"]}
-        emit("parallel_tp", backend=backend, graph=graph, rank=r["rank"], device=r["device"],
+        emit("parallel_tp", backend=backend, graph=graph, mesh=f"dp1 x tp{len(tp)}",
+             rank=r["rank"], device=r["device"],
              faces=pp.TP_FACES, decode_steps=d["steps"], first_logits_max_abs_err=err,
              largest_logit=scale, rtol_of_largest=TP_LOGIT_RTOL, greedy_agreement=greedy,
              lookahead8_agreement=lookahead, agreement_min=TP_AGREEMENT_MIN, checks=checks,
@@ -2947,6 +3019,126 @@ def _check_tp(torch, pp, ref: dict, tp: list, backend: str, graph: bool, failure
     return counts
 
 
+def _tier_references(torch, pp, pc, tiers) -> dict:
+    """This process's runs of the decoder alone that the tiers task's ranks
+    are held to, on the ranks' weights and one process's condition of the
+    first input: each tier's first decode step's logits (eager) and decode
+    at its TIER_FACES (replayed, as one process runs it; the megakernel
+    eager)."""
+    model = pp.model_for(pp.config(pp.DP_FACES), pc.device)
+    cond = pp.decoder_condition(model, pp.config(pp.DP_FACES), pc[:1])
+    ref = {}
+    for tier in tiers:
+        kw = pp.TP_TIERS[tier]
+        ocfg = pp.config(pp.TIER_FACES[tier])
+        gl = ocfg.generate_length
+        ref[tier] = {"first_logits": pp.tier_first_logits(model.opt, ocfg.opt, cond, kw, gl),
+                     "decode": pp.tier_decode(model.opt, ocfg.opt, cond, kw, gl, graph=True)}
+    del model
+    torch.cuda.empty_cache()
+    return ref
+
+
+# the kernel that each tier of the tiers task must launch
+TIER_KERNELS = {"int8": "k2", "int4": "k3", "fast": "k4_quant_window", "megakernel": "k5"}
+
+
+def _check_tiers(torch, pp, ref: dict, ranks: list, backend: str, graph: bool, failures: list,
+                 card: str) -> dict:
+    """The tiers task over a (1, world) mesh, the decoder alone on one
+    process's condition, each tier against this process's run of the same
+    tier: the first decode step's logits within TP_LOGIT_RTOL of the
+    largest, the decode's (or lookahead's) greedy agreement at least
+    TP_AGREEMENT_MIN, the megakernel's tokens bit-equal (the whole decoder
+    on every rank), in the int8/int4 tiers the codes and scales of the
+    prefill's layer-0 rows gathered over the ranks bit-equal to this
+    process's quantization of the gathered rows (a rank's own scale would
+    pass the agreement, not this), with ``graph`` the replayed tokens
+    bit-equal to the same rank's eager run; each tier's kernel launched.
+    Prints ms a step (a window forward) and all-reduce calls a step.
+    Returns the ranks' launches."""
+    from meshanything_tpu_torch.ops.kvcache import quantize_rows_for, unpack_int4
+
+    world = len(ranks)
+    for tier in ranks[0]["tiers"]:
+        kw, alone = pp.TP_TIERS[tier], ref[tier]
+        scale = float(alone["first_logits"].abs().max())
+        rows_check = None
+        recs = [r["tiers"][tier] for r in ranks]
+        if "prefill_rows" in recs[0]:
+            rows = torch.cat([rec["prefill_rows"]["rows"] for rec in recs], dim=-1).cuda()
+            codes, scales = (t.cpu() for t in quantize_rows_for(kw["attn"])(rows))
+            if kw["attn"] == "pallas_int8":
+                got = torch.cat([rec["prefill_rows"]["codes"] for rec in recs], dim=-1)
+                codes_equal = bool(torch.equal(got, codes))
+            else:
+                got = torch.cat([unpack_int4(rec["prefill_rows"]["codes"]) for rec in recs],
+                                dim=-1)
+                codes_equal = bool(torch.equal(got, unpack_int4(codes)))
+            rows_check = {"codes_bit_equal": codes_equal, "scales_bit_equal": all(
+                bool(torch.equal(rec["prefill_rows"]["scales"], scales[..., 0])) for rec in recs)}
+        for r, rec in zip(ranks, recs):
+            d = rec["decode"]
+            err = float((rec["first_logits"] - alone["first_logits"]).abs().max())
+            agreement = float((d["tokens"] == alone["decode"]["tokens"]).float().mean())
+            checks = {"logits": err <= TP_LOGIT_RTOL * scale
+                      and bool(torch.isfinite(rec["first_logits"]).all()),
+                      "agreement": agreement >= TP_AGREEMENT_MIN,
+                      "launched": rec["counts"][TIER_KERNELS[tier]] > 0}
+            if kw.get("attn") == "megakernel":
+                checks["tokens_bit_equal"] = bool(torch.equal(d["tokens"],
+                                                              alone["decode"]["tokens"]))
+            if rows_check is not None:
+                checks.update(rows_check)
+            if "decode_eager" in rec:
+                checks["replayed_equals_eager"] = bool(torch.equal(d["tokens"],
+                                                                   rec["decode_eager"]))
+            # a step or window forward run (a window loop runs no-op forwards past its end)
+            unit = "window_forward" if kw.get("lookahead") else "step"
+            emit("parallel_tier", backend=backend, graph=graph, mesh=f"dp1 x tp{world}",
+                 tier=tier, rank=r["rank"], device=r["device"], faces=rec["faces"],
+                 **{f"{unit}s": d["units"], f"{unit}s_run": d["ran"],
+                    f"ms_a_{unit}": d["seconds"] / d["ran"] * 1e3,
+                    f"alone_ms_a_{unit}": alone["decode"]["seconds"] / alone["decode"]["ran"]
+                    * 1e3},
+                 allreduce_calls=d["allreduce_calls"],
+                 allreduce_calls_a_eager_unit=(None if graph and kw.get("attn") != "megakernel"
+                                               else d["allreduce_calls"] / d["ran"]),
+                 alone_replayed=kw.get("attn") != "megakernel",
+                 first_logits_max_abs_err=err, largest_logit=scale,
+                 rtol_of_largest=TP_LOGIT_RTOL, agreement=agreement,
+                 agreement_min=TP_AGREEMENT_MIN, launches=rec["counts"], checks=checks,
+                 ok=all(checks.values()), card=card)
+            failed = [name for name, ok in checks.items() if not ok]
+            if failed:
+                failures.append((backend, "tiers", tier, r["rank"], failed, err, agreement))
+    counts = _sum_counts(ranks)
+    emit("parallel_tiers_launches", backend=backend, launches=counts,
+         rank_task_s=[r["task_s"] for r in ranks])
+    return counts
+
+
+def _check_dp_tp(torch, pp, ref: dict, ranks: list, failures: list, card: str) -> dict:
+    """The dp_tp task: ``--fast`` over a (world / 2, 2) mesh, one input a
+    data group, DP_FACES, replayed: every rank's gathered rows agree with
+    this process's B=1 ``--fast`` run of each input at least
+    TP_AGREEMENT_MIN (the model group's prefill sums in another order), and
+    the int8 K4 launched. Returns the ranks' launches."""
+    for r in ranks:
+        rows = r["tokens"].shape[0]
+        agreement = [float((r["tokens"][i] == ref["dp"][i]["fast"][0][0]).float().mean())
+                     for i in range(rows)]
+        ok = min(agreement) >= TP_AGREEMENT_MIN and r["counts"]["k4_quant_window"] > 0
+        emit("parallel_dp_tp", backend="nccl", mesh=f"dp{rows} x tp2", tier="fast",
+             rank=r["rank"], device=r["device"], faces=pp.DP_FACES, agreement=agreement,
+             agreement_min=TP_AGREEMENT_MIN, seconds=r["seconds"],
+             alone_seconds=[a["fast"][1] for a in ref["dp"][:rows]], launches=r["counts"],
+             ok=ok, card=card)
+        if not ok:
+            failures.append(("dp_tp", r["rank"], agreement))
+    return _sum_counts(ranks)
+
+
 def _train_reference(torch, pp, device) -> dict:
     """One process's trainer on the ranks' weights and batches."""
     from meshanything_tpu_torch.training.train import make_optimizer, make_train_step
@@ -2961,8 +3153,9 @@ def _train_reference(torch, pp, device) -> dict:
 
 
 def _check_train(pp, alone: dict, train: list, failures: list, card: str) -> None:
-    """The (1, 2) sharded trainer: losses within TRAIN_LOSS_RTOL and grad
-    norms within TRAIN_GRAD_NORM_RTOL of one process's, step by step."""
+    """The sharded trainer (its mesh in the records): losses within
+    TRAIN_LOSS_RTOL and grad norms within TRAIN_GRAD_NORM_RTOL of one
+    process's, step by step."""
     def rel(ours, theirs):
         return [abs(a - b) / abs(b) for a, b in zip(ours, theirs)]
 
@@ -2970,14 +3163,15 @@ def _check_train(pp, alone: dict, train: list, failures: list, card: str) -> Non
         t = r["train"]
         loss_rel, norm_rel = rel(t["loss"], alone["loss"]), rel(t["grad_norm"], alone["grad_norm"])
         ok = max(loss_rel) <= TRAIN_LOSS_RTOL and max(norm_rel) <= TRAIN_GRAD_NORM_RTOL
-        emit("parallel_train", rank=r["rank"], mesh="dp1 x tp2", **pp.TRAIN,
+        mesh = "dp{} x tp{}".format(*r["mesh"])
+        emit("parallel_train", rank=r["rank"], mesh=mesh, backend=r["backend"], **pp.TRAIN,
              loss=t["loss"], alone_loss=alone["loss"], loss_rel_diff=loss_rel,
              rtol=TRAIN_LOSS_RTOL, grad_norm=t["grad_norm"], alone_grad_norm=alone["grad_norm"],
              grad_norm_rel_diff=norm_rel, grad_norm_rtol=TRAIN_GRAD_NORM_RTOL, ok=ok,
              ms=t["ms"], alone_ms=alone["ms"], peak_bytes=t["peak_bytes"],
              task_s=r["task_s"], card=card)
         if not ok:
-            failures.append(("train", r["rank"], max(loss_rel), max(norm_rel)))
+            failures.append(("train", mesh, r["rank"], max(loss_rel), max(norm_rel)))
 
 
 def _dp_inputs(tmp: str):
@@ -3004,9 +3198,10 @@ def parallel_phase(torch, da, cli, load_obj, card: str) -> tuple:
     ``tools/parallel_probe.py`` with the counts set to 0 before and read
     after in the rank:
 
-    1. K1 and the bf16 K4 at a rank's head counts (``check_local_heads``);
-    then this process's references (``_references``, ``_train_reference``)
-    and one start of two ranks running the probe's dp, tp and train in turn;
+    1. K1, K2, K3 and the bf16, int8 and int4 K4 at a rank's head counts
+    (``check_local_heads``); then this process's references
+    (``_references``, ``_tier_references``, ``_train_reference``) and one
+    start of two ranks running the probe's dp, tp, tiers and train in turn;
     2. dp (``_check_dp``): ``generate`` over a (2, 1) mesh, one input a
        rank, 50 faces, in the exact tier (graph replays), ``--fast``, the
        int8 and int4 caches and the megakernel: each rank's gathered rows
@@ -3020,6 +3215,13 @@ def parallel_phase(torch, da, cli, load_obj, card: str) -> tuple:
        step inside all-reduce from a second, clocked decode of
        ``tools/parallel_probe.py::CLOCKED_STEPS`` steps (the clock
        synchronises the card at each call, so its steps are slower);
+    3b. tiers (``_check_tiers``): the same (1, 2) mesh, the decoder alone on
+       one process's condition, eager, in the int8 and int4 caches (K2, K3;
+       10 faces), ``--fast`` (the int8 K4 and W8A8, lookahead 8; 20 faces)
+       and the megakernel (K5 on the whole decoder; 20 faces): first-step
+       logits, agreement, the megakernel's tokens bit-equal, the int8/int4
+       prefill codes and scales bit-equal gathered; ms and all-reduce
+       calls a step;
     4. train (``_check_train``): ``make_sharded_train_step`` over (1, 2),
        f32 masters, B=2, 256 tokens, 3 steps: losses within
        TRAIN_LOSS_RTOL and grad norms within TRAIN_GRAD_NORM_RTOL of one
@@ -3044,11 +3246,15 @@ def parallel_phase(torch, da, cli, load_obj, card: str) -> tuple:
     with tempfile.TemporaryDirectory() as tmp:
         clouds, pc = _dp_inputs(tmp)
         ref = _references(torch, pp, pc, graph=False)
+        tier_ref = _tier_references(torch, pp, pc, pp.TP_TIERS)
         alone_train = _train_reference(torch, pp, device)
-        ranks, wall = _rank_results(torch, probe, pp.TASKS, tmp, "gloo")
-        emit("parallel_ranks", backend="gloo", tasks=list(pp.TASKS), wall_s=wall)
+        tasks = ("dp", "tp", "tiers", "train")
+        ranks, wall = _rank_results(torch, probe, tasks, tmp, "gloo")
+        emit("parallel_ranks", backend="gloo", tasks=list(tasks), wall_s=wall)
         launches["dp"] = _check_dp(torch, pp, ref, ranks["dp"], "gloo", failures)
         launches["tp"] = _check_tp(torch, pp, ref, ranks["tp"], "gloo", False, failures, card)
+        launches["tiers"] = _check_tiers(torch, pp, tier_ref, ranks["tiers"], "gloo", False,
+                                         failures, card)
         _check_train(pp, alone_train, ranks["train"], failures, card)
 
         # 5. --multihost under torchrun against one process's CLI
@@ -3104,13 +3310,24 @@ def parallel_phase(torch, da, cli, load_obj, card: str) -> tuple:
 
 
 def parallel_nccl_phase(torch, card: str) -> dict:
-    """Phase parallel_nccl: with two cards or more, phase parallel's dp and
-    tp passes again over NCCL, one rank a card (``cuda:0`` and ``cuda:1``),
-    the TP decode and lookahead replayed as CUDA graphs with the
-    all-reduces captured in them; held as phase parallel holds them (this
-    process's references on ``cuda:0``). With one card it prints that it
-    did not run. Returns the ranks' launches."""
-    if torch.cuda.device_count() < 2:
+    """Phase parallel_nccl, one rank a card over NCCL, the TP decode and
+    lookahead replayed as CUDA graphs with the step's collectives (the
+    all-reduced sums, the quantized tiers' max-reductions and W8A8's int32
+    sums) captured in them, each replay's tokens bit-equal to the same
+    rank's eager run; held as phase parallel holds them (this process's
+    references on ``cuda:0``):
+
+      * two cards or more: phase parallel's dp, tp and tiers passes over a
+        (2, 1) and a (1, 2) mesh (``cuda:0`` and ``cuda:1``);
+      * four cards or more: TP (1, 4) in the exact tier (tp) and in
+        ``--fast`` (tiers), DP x TP (2, 2) in ``--fast`` (``_check_dp_tp``)
+        and the sharded trainer at (1, 4) and (2, 2) against one process's
+        (``_check_train``).
+
+    With one card it prints that it did not run (and with two or three,
+    that the four-card passes did not). Returns the ranks' launches."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
         emit("parallel_nccl", run=False,
              reason="one card: dp and tp over NCCL, one rank a card, with the TP step "
                     "captured, need two cards; not run, no claim made")
@@ -3123,12 +3340,32 @@ def parallel_nccl_phase(torch, card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         _, pc = _dp_inputs(tmp)
         ref = _references(torch, pp, pc, graph=True)
-        ranks, wall = _rank_results(torch, probe, ("dp", "tp"), tmp, "nccl", "--graph")
-        emit("parallel_ranks", backend="nccl", tasks=["dp", "tp"], wall_s=wall)
+        tier_ref = _tier_references(torch, pp, pc, pp.TP_TIERS)
+        tasks = ("dp", "tp", "tiers")
+        ranks, wall = _rank_results(torch, probe, tasks, tmp, "nccl", "--graph")
+        emit("parallel_ranks", backend="nccl", world=2, tasks=list(tasks), wall_s=wall)
         launches["dp"] = _check_dp(torch, pp, ref, ranks["dp"], "nccl", failures)
         launches["tp"] = _check_tp(torch, pp, ref, ranks["tp"], "nccl", True, failures, card)
-    emit("parallel_nccl", run=True, cards=torch.cuda.device_count(),
-         seconds=time.perf_counter() - t_phase, card=card)
+        launches["tiers"] = _check_tiers(torch, pp, tier_ref, ranks["tiers"], "nccl", True,
+                                         failures, card)
+        if cards >= 4:
+            alone_train = _train_reference(torch, pp, torch.device("cuda"))
+            tasks = ("tp", "tiers", "dp_tp", "train", "train_dp_tp")
+            ranks, wall = _rank_results(torch, probe, tasks, tmp, "nccl", "--graph", "--tiers",
+                                        "fast", world=4)
+            emit("parallel_ranks", backend="nccl", world=4, tasks=list(tasks), wall_s=wall)
+            launches["tp4"] = _check_tp(torch, pp, ref, ranks["tp"], "nccl", True, failures,
+                                        card)
+            launches["tiers4"] = _check_tiers(torch, pp, tier_ref, ranks["tiers"], "nccl", True,
+                                              failures, card)
+            launches["dp_tp"] = _check_dp_tp(torch, pp, ref, ranks["dp_tp"], failures, card)
+            _check_train(pp, alone_train, ranks["train"] + ranks["train_dp_tp"], failures, card)
+        else:
+            emit("parallel_nccl_four", run=False,
+                 reason=f"{cards} cards: TP (1, 4), DP x TP (2, 2) and the trainer at (1, 4) "
+                        "and (2, 2) need four; not run, no claim made")
+    emit("parallel_nccl", run=True, cards=cards, seconds=time.perf_counter() - t_phase,
+         card=card)
     if failures:
         raise AssertionError(f"parallel_nccl: {failures}")
     return _sum_counts([{"counts": c} for c in launches.values()])
@@ -3786,8 +4023,9 @@ def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dic
                        (kernels[5], "k5")):
         entry["launches"] += parallel_launches[key]
         entry["launches_parallel"] = parallel_launches[key]
-    kernels[0]["max_abs_err_local_heads"] = parallel_worst["k1"]
-    kernels[4]["max_abs_err_local_heads"] = parallel_worst["k4_window"]
+    for entry, key in ((kernels[0], "k1"), (kernels[1], "k2"), (kernels[2], "k3"),
+                       (kernels[3], "k4_window_quant"), (kernels[4], "k4_window")):
+        entry["max_abs_err_local_heads"] = parallel_worst[key]
     kernels += probe_kernel_entries(probe_times, probe_launches, worst)
     data_sheet_gbs = HBM_BYTES_PER_S / 1e9
     for entry in kernels:

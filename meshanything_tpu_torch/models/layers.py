@@ -18,7 +18,8 @@ Tensor parallelism (``parallel/mesh.py``): a block whose ``tp_group`` is
 set holds its rank's shard of each split matrix and ``num_heads`` of its
 heads; ``col_lin`` and ``row_lin`` are its linears (the sum over the model
 group after a row-parallel one, its bias added once after the sum). With
-``tp_group`` None they are ``lin``.
+``tp_group`` None they are ``lin``; both also take the int8 entries of
+``ops/wquant.py``.
 """
 from __future__ import annotations
 
@@ -64,9 +65,12 @@ def row_lin(x: torch.Tensor, m, group, lin_e=lin) -> torch.Tensor:
     """A row-parallel linear (``m`` holds the rank's input features): the
     partial products summed over the model group in f32, the bias added
     once after the sum, rounded once to x's dtype. ``lin_e(x, m)`` without
-    a group."""
+    a group. An entry with a product of its own under a group (the int8
+    ``ops/wquant.py::QuantizedLinear``, which sums int32) computes it."""
     if group is None:
         return lin_e(x, m)
+    if hasattr(m, "row_parallel"):
+        return m.row_parallel(x, group)
     y = reduce_from_model(linear(x, m.weight), group)
     if m.bias is not None:
         y = y + m.bias.float()

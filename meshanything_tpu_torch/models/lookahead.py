@@ -25,9 +25,11 @@ is a replay of a CUDA graph captured for the window's width
 
 Under tensor parallelism (``parallel/mesh.py``) a forward runs the rank's
 heads over its cache columns (K4 over (H / tp) * D) and sums the out and
-fc2 products over the model group (``OPTLayer.after_attention``); the
-int8/int4 caches and ``wq`` are not ported there
-(``shape_opt.check_tensor_parallel``).
+fc2 products over the model group (``OPTLayer.after_attention``); in the
+int8/int4 tiers the window's K/V rows take their scales over the group
+(one all-reduce a layer for the window's (2, B, W) amaxes), and ``wq``
+sums the row-parallel products' int32 accumulators over it
+(``ops/wquant.py``), so a rank computes what one process computes.
 
 Sampling is speculative sampling against the deterministic draft chain
 of the window's guesses (``_speculative_accept``), with a
@@ -48,7 +50,6 @@ from meshanything_tpu_torch.models.shape_opt import (
     ShapeOPT,
     check_capture,
     check_prompt,
-    check_tensor_parallel,
     embed_tokens,
     face_phase_ids,
     prefill_cache,
@@ -119,14 +120,16 @@ def _speculative_accept(generator: Optional[torch.Generator], logits: torch.Tens
 
 
 def _window_attention(state: LookaheadState, layer_idx: int, q: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor, base: torch.Tensor):
+                      v: torch.Tensor, base: torch.Tensor, group=None):
     """K4 over the confirmed rows plus the window tile -> (o (B, W, H, D),
     the rows to append: K, V[, K scales, V scales]). ``base`` is the
-    forward's write_start as int32."""
+    forward's write_start as int32; ``group`` the layer's model group,
+    over which a quantized row's scale is taken."""
     if state.attn in QUANTIZED:
-        qrows = quantize_rows_for(state.attn)
         values, scales = state.kv
-        (kq, ks), (vq, vs) = qrows(k), qrows(v)           # (B, W, packed), (B, W, 1)
+        # K and V in one call: one all-reduce of their amaxes under a model group
+        codes, row_scales = quantize_rows_for(state.attn)(torch.stack([k, v]), group)
+        (kq, vq), (ks, vs) = codes, row_scales            # (B, W, packed), (B, W, 1)
         o = decode_attention_mq(q, values, scales, layer_idx, base, kq, vq,
                                 ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous())
         return o, (kq, vq, ks[..., 0], vs[..., 0])
@@ -179,7 +182,7 @@ def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
         h = layer.num_heads                                             # the rank's heads
         q, k, v = col_lin(x, mats.qkv, layer.tp_group, lin_e).chunk(3, dim=-1)   # (B, W, h*hd)
         o, appended = _window_attention(state, layer_idx, q.reshape(b, w, h, hd).contiguous(),
-                                        k, v, base)
+                                        k, v, base, layer.tp_group)
         rows.append(appended)
         x = layer.after_attention(x, o.reshape(b, w, h * hd), mats, lin_e)
     _append_window(state, rows, write_start)
@@ -269,7 +272,6 @@ def init_lookahead_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Te
     window at ``window``'s width), and ``into`` is returned."""
     attn = resolve_attn(attn)
     check_attn(attn)
-    check_tensor_parallel(p, attn)
     bw = window if buf_window is None else buf_window
     if bw < window:
         raise ValueError(f"buf_window={bw} must be >= window={window}")
@@ -415,7 +417,6 @@ def generate_lookahead(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tens
         # run: the cut stream would lose the step-by-step distribution
         raise ValueError("max_accept is a greedy-mode measurement knob; "
                          "it does not preserve the sampling distribution")
-    check_tensor_parallel(p, attn, wq)
     state = init_lookahead_state(p, cfg, cond_embeds, max_new_tokens=max_new_tokens,
                                  window=window, bucket=bucket, attn=attn, sampling=sampling,
                                  top_k=top_k, top_p=top_p, generator=generator,

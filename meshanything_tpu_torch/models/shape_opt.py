@@ -45,11 +45,24 @@ stays eager on the card: K5 takes the write position by value.
 Tensor parallelism (``parallel/mesh.py::shard_params``): each layer holds
 its rank's heads (``OPTLayer.num_heads``) and shards, and sums its out and
 fc2 products over ``OPTLayer.tp_group``; the rank's cache is (2, L, B, S,
-(H / tp) * D), K1 and K4 run over its heads alone. The step with the
-sums is captured into a CUDA graph under NCCL; under gloo it runs eagerly
-(``graph=False``; a capture asked for raises). The int8/int4 caches,
-``wq`` and the megakernel under tensor parallelism are not ported yet
-(``check_tensor_parallel``).
+(H / tp) * D), and K1, K2, K3 and K4 run over its heads alone. Every tier
+runs there and each rank computes what one process computes:
+
+  * the int8/int4 caches quantize a row with the scale of all H*D
+    columns, its amax taken over the group (``ops/kvcache.py``): one
+    all-reduce a layer for K and V of a step, one for the whole prefill;
+  * ``wq``: the row-parallel out and fc2 sum int32 accumulators over the
+    group, their scales taken over it (``ops/wquant.py``), so the layer's
+    products are one process's bit for bit;
+  * ``attn="megakernel"``: K5 runs all layers in one launch, with no point
+    between them for a sum, so, as GSPMD runs a Pallas call that has no
+    partitioning rule, the decoder is gathered whole over the group once a
+    generation (``whole_decoder``, kept in the decode state) and every rank
+    runs the prefill and K5 on the full width as one process does. Its tokens are one process's bit for bit
+    on the same condition, and it is no faster than one card.
+
+The step with the collectives is captured into a CUDA graph under NCCL;
+under gloo it runs eagerly (``graph=False``; a capture asked for raises).
 """
 from __future__ import annotations
 
@@ -82,6 +95,7 @@ from meshanything_tpu_torch.ops.megakernel import (
 from meshanything_tpu_torch.ops.sampling import sample_token
 from meshanything_tpu_torch.ops.wquant import lin_dispatch, quantize_opt_layers
 from meshanything_tpu_torch.parallel.collectives import capturable
+from meshanything_tpu_torch.parallel.mesh import gather_module
 from meshanything_tpu_torch.runtime import decode_graph
 
 ATTN_MODES = ("pallas", "pallas_int8", "pallas_int4", "megakernel")
@@ -242,21 +256,12 @@ def resolve_attn(attn: str) -> str:
     return attn
 
 
-def check_tensor_parallel(p: ShapeOPT, attn: str, wq: bool = False) -> None:
-    """Raise for what tensor parallelism (a model group on the layers) does
-    not run yet: the int8/int4 caches (a row's scale is the amax over all
-    H*D columns, which a rank's heads do not hold), W8A8 (its amaxes span
-    the split axis) and the megakernel (K5 runs all layers in one launch,
-    with no point between them for the sum). ROADMAP Queue 1 item 8."""
-    if p.layers[0].tp_group is None:
-        return
-    named = [what for what, given in (
-        ("the int8/int4 KV cache", attn in QUANTIZED), ("attn='megakernel'", attn == "megakernel"),
-        ("wq (W8A8)", wq)) if given]
-    if named:
-        raise NotImplementedError(
-            f"tensor parallelism (model axis > 1) with {', '.join(named)}: not ported yet "
-            "(ROADMAP Queue 1 item 8); data parallelism runs every tier")
+def whole_decoder(p: ShapeOPT) -> ShapeOPT:
+    """The decoder that ``attn="megakernel"`` runs: ``p`` itself, or under
+    a model group the full decoder gathered over it (every rank of the
+    group calls this; ``parallel/mesh.py::gather_module``, bit-exact)."""
+    group = p.layers[0].tp_group
+    return p if group is None else gather_module(p, group, "opt.")
 
 
 def check_capture(p: ShapeOPT) -> None:
@@ -319,7 +324,7 @@ def prefill_cache(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, a
     quantize it into rows [0, C + P) of the preallocated caches."""
     b, c, _ = cond_embeds.shape
     n = c + (0 if prompt_ids is None else prompt_ids.shape[1])
-    n_layers, hd = cfg.num_layers, cfg.hidden_size
+    n_layers, hd = cfg.num_layers, p.layers[0].num_heads * cfg.head_dim   # the rank's width
 
     def run_prefill(kv):
         if prompt_ids is None:
@@ -338,7 +343,8 @@ def prefill_cache(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, a
         kv = alloc_quantized_cache(attn, n_layers, b, seq, hd, chunk=bucket,
                                    device=cond_embeds.device)
     values, scales = kv
-    codes, row_scales = quantize_rows_for(attn)(compact)
+    # every row of every layer in one call: one all-reduce under a model group
+    codes, row_scales = quantize_rows_for(attn)(compact, p.layers[0].tp_group)
     values[:, :, :, :n] = codes
     scales[:, :, :, 0, :n] = row_scales[..., 0]
     return logits0, kv
@@ -368,6 +374,9 @@ class DecodeState:
     generator: Optional[torch.Generator] = None  # sampling mode
     attn: str = "pallas"
     graph: Optional[decode_graph.StepGraph] = None   # the request's captured step (card only)
+    # attn="megakernel": the decoder that the prefill ran on and K5 runs, under a model
+    # group the whole one gathered (whole_decoder)
+    decoder: Optional[ShapeOPT] = None
 
 
 def init_decode_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tensor, *,
@@ -387,9 +396,13 @@ def init_decode_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tenso
     tier (a kept state, with its captured graph): the prefill writes into
     its cache and every other tensor is set in place
     (``decode_graph.refill_state``), so that its graph replays the new
-    request. Returns ``into`` then."""
+    request. Returns ``into`` then. ``attn="megakernel"`` under a model
+    group prefills the whole decoder (``whole_decoder``, kept as
+    ``state.decoder``) into a full-width cache."""
     attn = resolve_attn(attn)
-    check_tensor_parallel(p, attn)
+    decoder = None
+    if attn == "megakernel":
+        p = decoder = whole_decoder(p)
     b, c, _ = cond_embeds.shape
     p_len = check_prompt(prompt_ids, max_new_tokens)
     if prompt_ids is not None:
@@ -408,27 +421,28 @@ def init_decode_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tenso
     state = DecodeState(step=p_len + 1,
                         step_t=torch.full((), p_len + 1, dtype=torch.int64, device=tokens.device),
                         tokens=tokens, kv=kv, done=first == cfg.eos_token_id, last_token=first,
-                        generator=generator, attn=attn)
+                        generator=generator, attn=attn, decoder=decoder)
     return state if into is None else decode_graph.refill_state(into, state)
 
 
 def _step_attention(state: DecodeState, layer_idx: int, write_pos: torch.Tensor,
                     cur_len: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+                    v: torch.Tensor, group=None) -> torch.Tensor:
     """Write the step's K/V row at ``write_pos`` ((1,) int64; quantized
-    first in the int8/int4 tiers) and attend over rows [0, cur_len)
-    (``cur_len`` = write_pos + 1, a 0-d int32 tensor that K1-K3 read on
-    the device; their grid is planned for the whole cache) -> (B, H, D)."""
+    first in the int8/int4 tiers, with the scale over the model group
+    ``group``) and attend over rows [0, cur_len) (``cur_len`` = write_pos
+    + 1, a 0-d int32 tensor that K1-K3 read on the device; their grid is
+    planned for the whole cache) -> (B, H, D)."""
     if state.attn == "pallas":
         state.kv[0, layer_idx].index_copy_(1, write_pos, k[:, None].to(state.kv.dtype))
         state.kv[1, layer_idx].index_copy_(1, write_pos, v[:, None].to(state.kv.dtype))
         return decode_attention(q, state.kv, layer_idx, cur_len)
     values, scales = state.kv
-    qrows = quantize_rows_for(state.attn)
-    for plane, rows in enumerate((k, v)):
-        codes, row_scale = qrows(rows)
-        values[plane, layer_idx].index_copy_(1, write_pos, codes[:, None])
-        scales[plane, layer_idx, :, 0].index_copy_(1, write_pos, row_scale)
+    # K and V in one call: one all-reduce of their amaxes under a model group
+    codes, row_scale = quantize_rows_for(state.attn)(torch.stack([k, v]), group)
+    for plane in range(2):
+        values[plane, layer_idx].index_copy_(1, write_pos, codes[plane, :, None])
+        scales[plane, layer_idx, :, 0].index_copy_(1, write_pos, row_scale[plane])
     kernel = decode_attention_int8 if state.attn == "pallas_int8" else decode_attention_int4
     return kernel(q, values, scales, layer_idx, cur_len)
 
@@ -475,7 +489,7 @@ def step_body(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
             h = layer.num_heads
             q, k, v = col_lin(x, mats.qkv, layer.tp_group, lin_e).chunk(3, dim=-1)
             o = _step_attention(state, layer_idx, write_pos, cur_len,
-                                q.reshape(b, h, hd).contiguous(), k, v)
+                                q.reshape(b, h, hd).contiguous(), k, v, layer.tp_group)
             x = layer.after_attention(x, o.reshape(b, h * hd), mats, lin_e)
     logits = lin(x, p.lm_head).float()   # keeps the activation dtype's rounding
 
@@ -570,12 +584,15 @@ def decode_loop(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *, max_new
     matrices are quantized once, here (or given already quantized as
     ``wq_layers``, as a runner that keeps its graphs gives them), and with
     ``attn="megakernel"`` they are packed for K5 once, here (prefill ran
-    on the originals)."""
+    on the originals), from the state's decoder (the whole one under a
+    model group)."""
     check_wq(state.attn, wq)
-    check_tensor_parallel(p, state.attn, wq or wq_layers is not None)
     if wq and wq_layers is None:
         wq_layers = quantize_opt_layers(p.layers)
-    mega_layers = pack_megakernel_layers(p.layers) if state.attn == "megakernel" else None
+    mega_layers = None
+    if state.attn == "megakernel":
+        p = state.decoder
+        mega_layers = pack_megakernel_layers(p.layers)
     while state.step < max_new_tokens:
         until = min(state.step + sync_every, max_new_tokens)
         state = decode_segment(p, cfg, state, max_new_tokens=max_new_tokens, until=until,

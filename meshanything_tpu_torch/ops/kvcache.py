@@ -17,12 +17,26 @@ Quantized caches (``attn="pallas_int8"`` / ``"pallas_int4"``) are a pair
     nibble p of word w holds column p*(H*D/8) + w as 4-bit two's
     complement in [-7, 7], scale max(amax, 1e-8) / 7;
   * scales (2, L, B, 1, S) f32; rows never written hold 1.0.
+
+Under tensor parallelism (``parallel/mesh.py``) a rank's cache holds its
+heads' (H/tp)*D columns, and the quantizers take the model group: a row's
+amax is the max over every rank's columns (``all_reduce_max``, one
+collective for all the rows of a call), so the scale is the one-process
+scale of all H*D columns, equal on every rank, and the rank's int8 codes
+are its columns of the one-process codes bit for bit. int4 packs the
+rank's columns in the plane layout over its own width ((H/tp)*D/8 words
+a row; nibble p of word w holds local column p*(H/tp)*D/8 + w), so the
+rank's words are no slice of the one-process words, but ``unpack_int4``
+of each rank's words, joined in rank order, is the one-process codes.
+The caller stacks K and V into one call (one all-reduce a layer).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from meshanything_tpu_torch.parallel.collectives import all_reduce_max
 
 QUANTIZED = ("pallas_int8", "pallas_int4")
 
@@ -51,21 +65,32 @@ def alloc_quantized_cache(attn: str, num_layers: int, batch: int, seq: int, hd: 
     return values, torch.ones((2, num_layers, batch, 1, s), dtype=torch.float32, device=device)
 
 
-def quantize_rows(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(..., D) rows -> (int8 codes (..., D), f32 scales (..., 1))."""
+def _row_scales(rf: torch.Tensor, qmax: float, group) -> torch.Tensor:
+    """max(amax, 1e-8) / qmax of each f32 row, the amax taken over the row's
+    columns on every rank of ``group`` (one all-reduce for the whole tensor)."""
+    amax = all_reduce_max(rf.abs().amax(dim=-1, keepdim=True), group)
+    return amax.clamp_min(1e-8) / qmax
+
+
+def quantize_rows(rows: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., D) rows -> (int8 codes (..., D), f32 scales (..., 1)). Under a
+    model group ``rows`` holds the rank's columns and the scale is the
+    whole row's (see the module docstring)."""
     rf = rows.float()
-    scale = rf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    scale = _row_scales(rf, 127.0, group)
     return torch.round(rf / scale).clamp(-127, 127).to(torch.int8), scale
 
 
-def quantize_rows_int4(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(..., D) rows -> (int32 plane words (..., D/8), f32 scales (..., 1))."""
+def quantize_rows_int4(rows: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., D) rows -> (int32 plane words (..., D/8), f32 scales (..., 1)),
+    packed over the D columns given (a rank's own under a model group,
+    whose scale is the whole row's)."""
     d = rows.shape[-1]
     if d % 8:
         raise ValueError(f"int4 plane packing needs a row width divisible by 8, got {d}")
     n = d // 8
     rf = rows.float()
-    scale = rf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 7.0
+    scale = _row_scales(rf, 7.0, group)
     codes = torch.round(rf / scale).clamp(-7, 7).to(torch.int64) & 15
     word = torch.zeros(rows.shape[:-1] + (n,), dtype=torch.int64, device=rows.device)
     for p in range(8):

@@ -12,6 +12,21 @@ Only the four per-layer matrices of the decode loop (qkv, out, fc1, fc2)
 are quantized; prefill, the embeddings, the layer norms and lm_head stay
 in the activation dtype. The JAX package leaves the s8 dot to XLA; here
 it is ``torch._int_mm``, on the card and on the CPU alike.
+
+Under tensor parallelism (a layer's ``tp_group``; ``parallel/mesh.py``)
+each product computes what one process's computes, bit for bit:
+
+  * column-parallel qkv and fc1: the rank holds whole output channels, so
+    each channel's scale (amax over the whole input) and the replicated
+    input's row scale are local; nothing changes;
+  * row-parallel out and fc2: the rank holds a slice of the input
+    features. A channel's weight amax is taken over every rank's slice at
+    quantize time (``all_reduce_max``, once), the activation row's amax at
+    each call, and the int32 accumulators are summed over the group
+    (exact, where a sum of f32 partial products is not); then one
+    dequantization, (acc * ascale) * wscale, and the bias once, after the
+    sum (``linear_w8a8(group=)``, reached through
+    ``QuantizedLinear.row_parallel`` from ``models/layers.py::row_lin``).
 """
 from __future__ import annotations
 
@@ -21,6 +36,8 @@ import torch
 from torch import nn
 
 from meshanything_tpu_torch.models.layers import lin
+from meshanything_tpu_torch.parallel.collectives import all_reduce_max, all_reduce_sum
+from meshanything_tpu_torch.parallel.mesh import opt_layer_specs
 
 # torch._int_mm on CUDA (cuBLASLt int8) refuses a row count of 16 or
 # less: "self.size(0) needs to be greater than 16". The decode loop's
@@ -30,9 +47,15 @@ _CUDA_MIN_ROWS = 17
 
 
 class QuantizedLinear(NamedTuple):
-    wq: torch.Tensor               # (out, in) int8
-    scale: torch.Tensor            # (out,) f32
+    wq: torch.Tensor               # (out, in) int8: a rank's shard under tensor parallelism
+    scale: torch.Tensor            # (out,) f32: the whole row's scale
     bias: Optional[torch.Tensor]
+
+    def row_parallel(self, x: torch.Tensor, group) -> torch.Tensor:
+        """The row-parallel product over ``group`` (``x`` the rank's input
+        features): ``models/layers.py::row_lin`` calls it for a quantized
+        entry."""
+        return linear_w8a8(x, self.wq, self.scale, self.bias, group=group)
 
 
 class QuantizedLayer(NamedTuple):
@@ -44,10 +67,12 @@ class QuantizedLayer(NamedTuple):
     fc2: QuantizedLinear
 
 
-def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, in) weights -> (int8 (out, in), f32 (out,) per-row scales)."""
+def quantize_weight(w: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, in) weights -> (int8 (out, in), f32 (out,) per-row scales);
+    with ``group`` each row's amax is the max over every rank's slice of
+    the row (a row-parallel shard)."""
     wf = w.float()
-    scale = wf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    scale = all_reduce_max(wf.abs().amax(dim=-1), group).clamp_min(1e-8) / 127.0
     return torch.round(wf / scale[:, None]).clamp(-127, 127).to(torch.int8), scale
 
 
@@ -61,27 +86,43 @@ def _int_mm(a: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 
 def linear_w8a8(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
-                b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (..., in) @ dequant(wq).T with int8 operands; returns x's dtype."""
+                b: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
+    """x (..., in) @ dequant(wq).T with int8 operands; returns x's dtype.
+    ``group``: a row-parallel product, x and wq the rank's input features
+    and wscale the whole rows' scales; the activation amax is the whole
+    row's and the int32 accumulators are summed over the group before the
+    one dequantization and the bias, so every rank holds one process's
+    result."""
     xf = x.float()
-    ascale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    amax = all_reduce_max(xf.abs().amax(dim=-1, keepdim=True), group)
+    ascale = amax.clamp_min(1e-8) / 127.0
     xq = torch.round(xf / ascale).clamp(-127, 127).to(torch.int8)
     acc = _int_mm(xq.reshape(-1, x.shape[-1]), wq).reshape(x.shape[:-1] + (wq.shape[0],))
+    if group is not None:
+        acc = all_reduce_sum(acc, group)
     y = acc.float() * ascale * wscale
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)
 
 
-def _quantize_linear(m: nn.Linear) -> QuantizedLinear:
-    wq, scale = quantize_weight(m.weight.detach())
+# the row-parallel matrices of an OPT layer (input features split over the model axis)
+_ROW_PARALLEL = {name for name, spec in opt_layer_specs().items()
+                 if name in QuantizedLayer._fields and spec["weight"].dim == 1}
+
+
+def _quantize_linear(m: nn.Linear, group=None) -> QuantizedLinear:
+    wq, scale = quantize_weight(m.weight.detach(), group)
     return QuantizedLinear(wq, scale, None if m.bias is None else m.bias.detach())
 
 
 def quantize_opt_layers(layers) -> List[QuantizedLayer]:
     """Quantize qkv/out/fc1/fc2 of every ``OPTLayer``; the layer norms
-    stay on the layers themselves."""
-    return [QuantizedLayer(*(_quantize_linear(getattr(layer, name))
+    stay on the layers themselves. Under a layer's model group
+    (``tp_group``) every rank of it calls this: the row-parallel out and
+    fc2 take their scales over the group (one all-reduce each)."""
+    return [QuantizedLayer(*(_quantize_linear(getattr(layer, name), layer.tp_group
+                                              if name in _ROW_PARALLEL else None)
                              for name in QuantizedLayer._fields)) for layer in layers]
 
 

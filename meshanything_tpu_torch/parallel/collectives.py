@@ -19,7 +19,9 @@ the activation dtype once (``models/layers.py::row_lin``). Data
 parallelism adds the grads over the ``data`` group (``all_reduce_grads``)
 and gathers the rows of a result (``gather_rows``: a broadcast from each
 rank, exact in every dtype, and run by gloo on CUDA tensors too, where
-gloo's all-gather is not).
+gloo's all-gather is not). The quantized tiers take a max over the model
+group (``all_reduce_max``: a scale over all H*D columns or all input
+features) and sum int32 accumulators (``all_reduce_sum``), both exact.
 
 A process group of gloo cannot run inside a CUDA-graph capture
 (``capturable``); NCCL can.
@@ -105,6 +107,18 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     y = x.clone()
     if group_size(group) > 1:
         dist.all_reduce(y, group=group)
+    return y
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group`` in a new tensor (``x``
+    itself without a group: the one-process path adds no copy): exact, so
+    every rank holds the same result. The quantized tiers form their
+    scales from it (``ops/kvcache.py``, ``ops/wquant.py``)."""
+    if group_size(group) == 1:
+        return x
+    y = x.clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     return y
 
 

@@ -4,8 +4,11 @@ the CPU (``parallel/launch.py``) with the small config in f32, and in them:
 
   * one sharded train step over a (data, model) mesh (model 2 where n is
     even), its loss within 1e-5 of one process's step on the same batch;
-  * a (data x model) sharded ``generate`` of the trained weights, and
-    lookahead (window 4) under data parallelism over all n ranks;
+  * a (data x model) sharded ``generate`` of the trained weights and
+    ``PhaseRunner`` on the rank's rows, in every tier of ``TIERS`` (the
+    exact one, the int8 and int4 caches, ``--fast`` at window 4, the
+    megakernel) and the runner's adaptive lookahead over the int4 cache,
+    and lookahead (window 4) under data parallelism over all n ranks;
   * the segmented decode (``init_decode_state`` + bounded
     ``decode_segment``) and the segmented lookahead (``lookahead_segment``
     with iteration bounds) over the int8 and the int4 caches under data
@@ -22,6 +25,10 @@ import sys
 import numpy as np
 
 BUCKET = 16
+# tier -> generate's and PhaseRunner's keywords
+TIERS = {"exact": {}, "int8": {"attn": "pallas_int8"}, "int4": {"attn": "pallas_int4"},
+         "fast": {"attn": "pallas_int8", "lookahead": 4, "wq": True},
+         "megakernel": {"attn": "megakernel"}}
 
 
 def _worker() -> None:
@@ -35,6 +42,7 @@ def _worker() -> None:
     from meshanything_tpu_torch.parallel.mesh import create_mesh, gather_params, join
     from meshanything_tpu_torch.parallel.multihost import process_info
     from meshanything_tpu_torch.runtime.checkpoint import init_random_params
+    from meshanything_tpu_torch.runtime.phases import PhaseRunner
     from meshanything_tpu_torch.training.train import (
         make_batch,
         make_sharded_train_step,
@@ -73,8 +81,19 @@ def _worker() -> None:
             assert torch.equal(sharded, single), f"{name}: sharded != one process"
             checks[name] = tuple(sharded.shape)
 
-        same("generate", ma.generate(state.model, cfg, x, bucket=BUCKET, mesh=mesh).token_ids,
-             ma.generate(trained, cfg, x, bucket=BUCKET).token_ids)
+        for tier, kw in TIERS.items():
+            single = ma.generate(trained, cfg, x, bucket=BUCKET, **kw).token_ids
+            same(f"generate_{tier}", ma.generate(state.model, cfg, x, bucket=BUCKET, mesh=mesh,
+                                                 **kw).token_ids, single)
+            runner = PhaseRunner(state.model, cfg, bucket=BUCKET, **kw)
+            same(f"runner_{tier}", gather_rows(runner(ma.local_rows(mesh, x)).token_ids,
+                                               mesh.data_group), single)
+        adaptive = dict(bucket=BUCKET, attn="pallas_int4", lookahead="adaptive",
+                        adaptive_windows=(2, 4), adaptive_check_iters=2)
+        runner = PhaseRunner(state.model, cfg, **adaptive)
+        same("runner_int4_adaptive", gather_rows(runner(ma.local_rows(mesh, x)).token_ids,
+                                                 mesh.data_group),
+             PhaseRunner(trained, cfg, **adaptive)(x).token_ids)
         same("lookahead", ma.generate(trained, cfg, xs, bucket=BUCKET, lookahead=4,
                                       mesh=dp).token_ids,
              ma.generate(trained, cfg, xs, bucket=BUCKET, lookahead=4).token_ids)

@@ -42,6 +42,7 @@ import torch.distributed as dist
 from torch import nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
+from meshanything_tpu_torch.parallel.collectives import group_size
 from meshanything_tpu_torch.parallel.multihost import (
     initialize_multihost,
     process_info,
@@ -300,28 +301,36 @@ def shard_tensors(mesh: Mesh, full: Dict[str, torch.Tensor]) -> Dict[str, torch.
         memory_format=torch.contiguous_format) for name, t in full.items()}
 
 
+def _gather_over(group, local: Dict[str, torch.Tensor], spec) -> Dict[str, torch.Tensor]:
+    """The full tensors of every rank's shards over the model group
+    ``group`` (``spec(name)`` a tensor's Split): each rank broadcasts its
+    split shards, one flattened buffer a dtype, so the result is
+    bit-exact."""
+    full = dict(local)
+    names = [n for n in local if spec(n).dim is not None]
+    ranks = dist.get_process_group_ranks(group)
+    me = dist.get_rank(group)
+    for dtype in {local[n].dtype for n in names}:
+        group_names = [n for n in names if local[n].dtype == dtype]
+        mine = [local[n].contiguous() for n in group_names]
+        flat = _flatten_dense_tensors(mine)
+        shards = {n: [] for n in group_names}
+        for index, src in enumerate(ranks):
+            buf = flat if index == me else torch.empty_like(flat)
+            dist.broadcast(buf, src=src, group=group)
+            for n, t in zip(group_names, _unflatten_dense_tensors(buf, mine)):
+                shards[n].append(t)
+        for n in group_names:
+            full[n] = unshard_tensor(shards[n], spec(n))
+    return full
+
+
 def gather_tensors(mesh: Mesh, local: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The full tensors of every rank's shards by parameter name (every
-    rank of the model group calls it): each rank broadcasts its split
-    shards, one flattened buffer a dtype, so the result is bit-exact."""
+    rank of the model group calls it), bit-exact."""
     if mesh.model == 1:
         return dict(local)
-    full = dict(local)
-    names = [n for n in local if spec_for(n).dim is not None]
-    ranks = dist.get_process_group_ranks(mesh.model_group)
-    for dtype in {local[n].dtype for n in names}:
-        group = [n for n in names if local[n].dtype == dtype]
-        mine = [local[n].contiguous() for n in group]
-        flat = _flatten_dense_tensors(mine)
-        shards = {n: [] for n in group}
-        for index, src in enumerate(ranks):
-            buf = flat if index == mesh.model_index else torch.empty_like(flat)
-            dist.broadcast(buf, src=src, group=mesh.model_group)
-            for n, t in zip(group, _unflatten_dense_tensors(buf, mine)):
-                shards[n].append(t)
-        for n in group:
-            full[n] = unshard_tensor(shards[n], spec_for(n))
-    return full
+    return _gather_over(mesh.model_group, local, spec_for)
 
 
 def _rebuilt(model: nn.Module, tensors: Dict[str, torch.Tensor], heads: callable,
@@ -365,10 +374,20 @@ def shard_params(mesh: Mesh, model: nn.Module) -> nn.Module:
     return _rebuilt(model, local, lambda h: h // mesh.model, mesh.model_group)
 
 
+def gather_module(local: nn.Module, group, prefix: str = "") -> nn.Module:
+    """The full module of a rank's local submodule of ``MeshAnything``
+    (its parameters named ``prefix + name`` in the spec table), gathered
+    over the model group ``group`` (every rank of it calls this),
+    bit-exact; ``local`` itself without a group."""
+    n = group_size(group)
+    if n == 1:
+        return local
+    full = _gather_over(group, {name: p.detach() for name, p in local.named_parameters()},
+                        lambda name: spec_for(prefix + name))
+    return _rebuilt(local, full, lambda h: h * n, None)
+
+
 def gather_params(mesh: Mesh, local: nn.Module) -> nn.Module:
     """The full module of the rank's local one (every rank of the model
     group calls it; ``shard_params``' inverse, bit-exact)."""
-    if mesh.model == 1:
-        return local
-    full = gather_tensors(mesh, {n: p.detach() for n, p in local.named_parameters()})
-    return _rebuilt(local, full, lambda h: h * mesh.model, None)
+    return gather_module(local, mesh.model_group)

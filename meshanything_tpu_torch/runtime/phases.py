@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from meshanything_tpu_torch.config import MeshAnythingConfig
+from meshanything_tpu_torch.parallel.collectives import group_size
 
 # Kept free of the card's total memory: the CUDA context and the kernels'
 # code, cuBLAS workspaces, and the caching allocator's fragmentation.
@@ -245,7 +246,6 @@ class PhaseRunner:
         if lookahead:
             la_mod.check_attn(self.attn)
         opt_mod.check_wq(self.attn, wq)
-        opt_mod.check_tensor_parallel(model.opt, self.attn, wq)
         self.place = place
         self.early_exit = early_exit
         self.lookahead = lookahead
@@ -255,6 +255,11 @@ class PhaseRunner:
         self.graph = graph
         self.device = next(model.parameters()).device
         self.param_bytes = param_tree_bytes(model)
+        group = model.opt.layers[0].tp_group
+        if self.attn == "megakernel" and group is not None:
+            # a generation also holds the decoder gathered whole on each rank
+            # (shape_opt.whole_decoder): at most the group's size times the local one
+            self.param_bytes += param_tree_bytes(model.opt) * group_size(group)
         if aot_dir is not None:
             from meshanything_tpu_torch.runtime.aot import AotStore
 

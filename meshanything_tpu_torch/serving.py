@@ -551,8 +551,8 @@ def main(argv=None):
     args = get_args(argv)
     check_ported(args)
     if args.multihost:
-        # the CLI's folder-run flag; a server over several processes
-        # (replicas behind a router) is ROADMAP Queue 1 item 8
+        # the CLI's folder-run flag. JAX's server parses --multihost and never
+        # reads it, and has no router: replicas behind one are not ported
         raise NotImplementedError("--multihost in serving: not ported yet (the server runs "
                                   "one process; --multihost is the CLI's folder run)")
     device = resolve_device(args.device)

@@ -24,9 +24,21 @@ list, run in this order in one process (one start-up for all):
          eagerly too, on the same local module (the tokens the replays
          must equal); eager, also a clocked decode of CLOCKED_STEPS steps
          (the share of a step inside all-reduce calls); tokens, launches;
+  tiers  a (1, world) mesh, the decoder alone on one process's condition
+         of the first row (``decoder_condition``), in each tier of
+         ``TP_TIERS`` (``--tiers`` picks some) at its TIER_FACES: the first
+         decode step's logits, the decode or lookahead (tokens, ms a step
+         or a window forward, all-reduce calls a step), eager or with
+         ``--graph`` replayed and then run eagerly too; in the int8/int4
+         tiers the prefill's layer-0 K/V rows with the codes and scales the
+         rank's cache holds for them (``prefill_rows``); launches a tier;
+  dp_tp  a (world / 2, 2) mesh: ``generate`` of ``inputs.npy``'s first
+         world / 2 rows (one a data group) in the ``--fast`` tier, DP_FACES,
+         replayed with ``--graph``; tokens, seconds, launches;
   train  a (1, world) mesh, f32 master weights: TRAIN["steps"] sharded
          train steps on ``make_batch`` batches from seed 0; losses, grad
-         norms, ms a step.
+         norms, ms a step;
+  train_dp_tp  the same over a (world / 2, 2) mesh.
 
 ``cli`` runs ``cli.main`` of the arguments after ``--`` (``--multihost``
 under torchrun), with the launches counted around it. ``--backend`` picks
@@ -53,7 +65,15 @@ BUCKET = 512
 DP_FACES = 50
 TP_FACES = 20
 TRAIN = {"faces": 100, "batch": 2, "seq": 256, "steps": 3}
-TASKS = ("dp", "tp", "train")
+TASKS = ("dp", "tp", "tiers", "dp_tp", "train", "train_dp_tp")
+# the tiers that a model group runs beside the exact one (the tiers task):
+# the int8 and int4 caches (K2, K3), --fast (the int8 K4 and W8A8) and K5
+TP_TIERS = {"int8": TIERS["int8"], "int4": TIERS["int4"], "fast": TIERS["fast"],
+            "megakernel": TIERS["megakernel"]}
+# their depth cuts: an eager int8/int4 step over gloo makes ~72 all-reduces
+# (1.3-1.8 ms each on one card), so the single-token quantized tiers run 91
+# steps; the others 181 steps (lookahead: a window forward a few)
+TIER_FACES = {"int8": 10, "int4": 10, "fast": 20, "megakernel": 20}
 # decode steps of the tp task's clocked run (the clock synchronises the card
 # at each all-reduce, which slows the eager step it measures: the ms a step
 # come from a run without it)
@@ -150,11 +170,14 @@ def first_step_logits(model, cfg, pc):
 class AllReduceClock:
     """Seconds spent inside ``torch.distributed.all_reduce`` while active:
     the card is synchronised before each call, so a call's time is its
-    own (the copies and the exchange), not the kernels queued before it."""
+    own (the copies and the exchange), not the kernels queued before it.
+    With ``timed=False`` it only counts the calls (and synchronises
+    nothing)."""
 
-    def __init__(self):
+    def __init__(self, timed: bool = True):
         self.seconds = 0.0
         self.calls = 0
+        self.timed = timed
 
     def __enter__(self):
         import torch
@@ -163,6 +186,9 @@ class AllReduceClock:
         self._orig = dist.all_reduce
 
         def timed(tensor, *a, **kw):
+            if not self.timed:
+                self.calls += 1
+                return self._orig(tensor, *a, **kw)
             if tensor.is_cuda:
                 torch.cuda.synchronize(tensor.device)
             t0 = time.perf_counter()
@@ -223,6 +249,116 @@ def lookahead_tokens(model, cfg, pc, graph: bool = False):
         return ma.generate(model, cfg, pc, bucket=BUCKET, lookahead=8, graph=graph).token_ids.cpu()
 
 
+def decoder_condition(model, cfg, pc):
+    """One process's condition embeddings of ``pc`` (the full model's
+    encode): the tiers task holds the decoder alone, on this condition."""
+    import torch
+
+    from meshanything_tpu_torch.models import meshanything as ma
+
+    with torch.no_grad():
+        return ma.encode(model, cfg, pc)[1]
+
+
+def tier_first_logits(opt_p, ocfg, cond, kw: dict, gen_len: int):
+    """The first decode step's f32 logits (on the CPU) of the tier of
+    generate's keywords ``kw``, eager: the single-token step of its cache
+    and matrices (--fast: int8 and W8A8; the megakernel: K5 on the whole
+    decoder)."""
+    import torch
+
+    from meshanything_tpu_torch.models import shape_opt as opt
+    from meshanything_tpu_torch.ops.megakernel import pack_megakernel_layers
+    from meshanything_tpu_torch.ops.wquant import quantize_opt_layers
+
+    attn = kw.get("attn", "pallas")
+    with torch.no_grad():
+        state = opt.init_decode_state(opt_p, ocfg, cond, max_new_tokens=gen_len, bucket=BUCKET,
+                                      attn=attn)
+        step_kw = {}
+        if attn == "megakernel":
+            opt_p = state.decoder
+            step_kw["mega_layers"] = pack_megakernel_layers(opt_p.layers)
+        if kw.get("wq"):
+            step_kw["wq_layers"] = quantize_opt_layers(opt_p.layers)
+        return opt.decode_step(opt_p, ocfg, state, **step_kw).float().cpu()
+
+
+def tier_decode(opt_p, ocfg, cond, kw: dict, gen_len: int, *, graph: bool = False,
+                counter=None) -> dict:
+    """The tier's decode of ``cond`` to ``gen_len`` tokens: the single-token
+    loop, or with ``kw["lookahead"]`` the window loop (eager, or with
+    ``graph`` replayed; the megakernel is eager): tokens (CPU), units
+    (decode steps, or window forwards with a live row), ran (the steps or
+    forwards run: a window loop on the card runs up to CHECK_EVERY - 1
+    no-op forwards past its last live one), seconds, and the all-reduce
+    calls that ``counter`` (``AllReduceClock(timed=False)``) saw in it."""
+    import torch
+
+    from meshanything_tpu_torch.models import lookahead as la
+    from meshanything_tpu_torch.models import shape_opt as opt
+    from meshanything_tpu_torch.ops.decode_attention import decode_attention_mq
+    from meshanything_tpu_torch.ops.wquant import quantize_opt_layers
+    from meshanything_tpu_torch.runtime.decode_graph import StepGraph
+
+    attn, window = kw.get("attn", "pallas"), kw.get("lookahead", 0)
+    device = cond.device
+    with torch.no_grad():
+        wq_layers = quantize_opt_layers(opt_p.layers) if kw.get("wq") else None
+        if window:
+            state = la.init_lookahead_state(opt_p, ocfg, cond, max_new_tokens=gen_len,
+                                            window=window, bucket=BUCKET, attn=attn)
+        else:
+            state = opt.init_decode_state(opt_p, ocfg, cond, max_new_tokens=gen_len,
+                                          bucket=BUCKET, attn=attn)
+        steps0 = state.step if not window else 0
+        calls0 = counter.calls if counter else 0
+        k4_0 = decode_attention_mq.launches
+        replays0, captures0 = StepGraph.replays, StepGraph.captures
+        _sync(device)
+        t0 = time.perf_counter()
+        if window:
+            state = la.lookahead_segment(opt_p, ocfg, state, max_new_tokens=gen_len,
+                                         wq_layers=wq_layers, graph=graph)
+        else:
+            state = opt.decode_loop(opt_p, ocfg, state, max_new_tokens=gen_len, graph=graph,
+                                    wq_layers=wq_layers)
+        _sync(device)
+        seconds = time.perf_counter() - t0
+    tokens = state.tokens[:, :gen_len].cpu()
+    units = ran = state.iters if window else state.step - steps0
+    if window and device.type == "cuda":
+        # an eager forward launches K4 once a layer; a replayed one is a replay, and
+        # each capture followed one eager warm-up forward
+        ran = (StepGraph.replays - replays0 + StepGraph.captures - captures0 if graph
+               else (decode_attention_mq.launches - k4_0) // ocfg.num_layers)
+    return {"tokens": tokens, "units": units, "ran": ran, "seconds": seconds,
+            "allreduce_calls": (counter.calls - calls0) if counter else 0}
+
+
+def prefill_rows(opt_p, ocfg, cond, attn: str, gen_len: int) -> dict:
+    """The prefill's layer-0 K/V rows (the compact activations, before they
+    are quantized; (2, B, C, the rank's width)) and the codes and scales
+    that the tier's decode state holds for them, on the CPU: gathered over
+    the ranks they must be one process's quantization of the gathered
+    rows."""
+    import torch
+
+    from meshanything_tpu_torch.models import shape_opt as opt
+
+    c = cond.shape[1]
+    width = opt_p.layers[0].num_heads * ocfg.head_dim
+    with torch.no_grad():
+        compact = torch.empty((2, ocfg.num_layers, cond.shape[0], c, width), dtype=cond.dtype,
+                              device=cond.device)
+        opt.prefill(opt_p, ocfg, cond, compact)
+        state = opt.init_decode_state(opt_p, ocfg, cond, max_new_tokens=gen_len, bucket=BUCKET,
+                                      attn=attn)
+        values, scales = state.kv
+        return {"rows": compact[:, 0].cpu(), "codes": values[:, 0, :, :c].cpu(),
+                "scales": scales[:, 0, :, 0, :c].cpu()}
+
+
 def train_batches(cfg) -> list:
     """TRAIN's batches, ``make_batch`` from seed 0."""
     from meshanything_tpu_torch.training.train import make_batch
@@ -272,6 +408,64 @@ def _tp_task(model, pc, mesh, graph: bool) -> dict:
     return res
 
 
+def _tiers_task(model, pc, mesh, graph: bool, tiers) -> dict:
+    """The tiers task (module docstring): one record a tier."""
+    import torch
+
+    from meshanything_tpu_torch.parallel.mesh import shard_params
+
+    local = shard_params(mesh, model)
+    cond = decoder_condition(model, config(max(TIER_FACES.values())), pc[:1])
+    res = {}
+    for tier in tiers:
+        kw = TP_TIERS[tier]
+        ocfg = config(TIER_FACES[tier])
+        gl = ocfg.generate_length
+        rec = {"faces": TIER_FACES[tier]}
+        zero_counts()
+        rec["first_logits"] = tier_first_logits(local.opt, ocfg.opt, cond, kw, gl)
+        with AllReduceClock(timed=False) as counter:
+            rec["decode"] = tier_decode(local.opt, ocfg.opt, cond, kw, gl, graph=graph,
+                                        counter=counter)
+        rec["counts"] = read_counts()
+        # not counted: the eager twin of the replays, and the prefill's rows
+        if graph and kw.get("attn") != "megakernel":
+            rec["decode_eager"] = tier_decode(local.opt, ocfg.opt, cond, kw, gl)["tokens"]
+        if kw.get("attn") in ("pallas_int8", "pallas_int4") and not kw.get("lookahead"):
+            rec["prefill_rows"] = prefill_rows(local.opt, ocfg.opt, cond, kw["attn"], gl)
+        res[tier] = rec
+    del local
+    torch.cuda.empty_cache()
+    return {"tiers": res, "counts": _sum_tier_counts(res)}
+
+
+def _sum_tier_counts(res: dict) -> dict:
+    counts = [rec["counts"] for rec in res.values()]
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def _dp_tp_task(model, pc, mesh, graph: bool) -> dict:
+    """The dp_tp task: --fast over a (world / 2, 2) mesh, one row a data group."""
+    import torch
+
+    from meshanything_tpu_torch.models import meshanything as ma
+    from meshanything_tpu_torch.parallel.mesh import shard_params
+
+    cfg = config(DP_FACES)
+    local = shard_params(mesh, model)
+    zero_counts()
+    _sync(pc.device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        tokens = ma.generate(local, cfg, pc[:mesh.data], bucket=BUCKET, mesh=mesh, graph=graph,
+                             **TIERS["fast"]).token_ids
+    _sync(pc.device)
+    res = {"tokens": tokens.cpu(), "seconds": time.perf_counter() - t0, "counts": read_counts()}
+    del local
+    torch.cuda.empty_cache()
+    return res
+
+
 def _train_task(device, mesh) -> dict:
     import torch
 
@@ -284,7 +478,7 @@ def _train_task(device, mesh) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     out = train_run(state, step_fn, batches, device)
     out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
-    return {"train": out}
+    return {"train": out, "mesh": (mesh.data, mesh.model)}
 
 
 def main(argv=None) -> None:
@@ -298,7 +492,10 @@ def main(argv=None) -> None:
     ap.add_argument("out")
     ap.add_argument("--backend", default=None, choices=["nccl", "gloo"])
     ap.add_argument("--graph", action="store_true",
-                    help="tp: replay the decode as CUDA graphs (a collective over NCCL)")
+                    help="tp, tiers, dp_tp: replay the decode as CUDA graphs (a collective "
+                         "over NCCL)")
+    ap.add_argument("--tiers", default=",".join(TP_TIERS),
+                    help=f"the tiers task's tiers, comma-separated, of {', '.join(TP_TIERS)}")
     argv = sys.argv[1:] if argv is None else argv
     rest = []
     if "--" in argv:
@@ -318,11 +515,14 @@ def main(argv=None) -> None:
     tasks = args.tasks.split(",")
     if not tasks or set(tasks) - set(TASKS):
         raise SystemExit(f"tasks {args.tasks!r}: a comma-separated list of {', '.join(TASKS)}")
+    tiers = args.tiers.split(",")
+    if set(tiers) - set(TP_TIERS):
+        raise SystemExit(f"tiers {args.tiers!r}: a comma-separated list of {', '.join(TP_TIERS)}")
 
     device = join("cuda", args.backend)
     rank, world = process_info()
     model = pc = None
-    if "dp" in tasks or "tp" in tasks:
+    if set(tasks) & {"dp", "tp", "tiers", "dp_tp"}:
         pc = torch.from_numpy(np.load(os.path.join(args.out, "inputs.npy"))).to(device)
         model = model_for(config(DP_FACES), device)
     for task in TASKS:
@@ -336,11 +536,17 @@ def main(argv=None) -> None:
                    "counts": read_counts()}
         elif task == "tp":
             res = _tp_task(model, pc, create_mesh(1, world, device), args.graph)
+        elif task == "tiers":
+            res = _tiers_task(model, pc, create_mesh(1, world, device), args.graph, tiers)
+        elif task == "dp_tp":
+            res = _dp_tp_task(model, pc, create_mesh(world // 2, 2, device), args.graph)
         else:
-            del model
+            model = None
             torch.cuda.empty_cache()
-            res = _train_task(device, create_mesh(1, world, device))
+            shape = (1, world) if task == "train" else (world // 2, 2)
+            res = _train_task(device, create_mesh(*shape, device))
         res.update(rank=rank, world=world, device=str(device),
+                   backend=torch.distributed.get_backend(),
                    task_s=time.perf_counter() - t0)
         torch.save(res, os.path.join(args.out, f"{task}_rank{rank}.pt"))
     torch.distributed.barrier()

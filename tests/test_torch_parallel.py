@@ -8,10 +8,13 @@ one torch thread each) run one worker script over three meshes of the
 same ranks: (data 2, model 2), (4, 1) and (1, 4). They read the weights
 as a native checkpoint and their inputs from an ``.npz`` in tmp_path,
 written here from JAX's arrays, and write what they computed back; the
-tests hold it to JAX's ``forward_logits``, ``generate(attn="pallas")``
-(interpret mode), ``train_step`` and ``contrastive_loss(axis_name=)``.
-The workers run while JAX computes its side.
+tests hold it to JAX's ``forward_logits``, single-device ``generate`` in
+every tier (its Pallas kernels in interpret mode: what GSPMD computes
+over a mesh), ``train_step`` and ``contrastive_loss(axis_name=)``, and
+the quantizers and W8A8 products under a model group to one process's
+bit for bit. The workers run while JAX computes its side.
 """
+import json
 import os
 import sys
 
@@ -30,6 +33,7 @@ from meshanything_tpu.training import optim as joptim
 from meshanything_tpu.training import train as jtrain
 from meshanything_tpu_torch.config import MeshAnythingConfig, small_test_config
 from meshanything_tpu_torch.models import meshanything as ma
+from meshanything_tpu_torch.ops import kvcache, wquant
 from meshanything_tpu_torch.parallel import mesh as pmesh
 from meshanything_tpu_torch.parallel.dryrun import dryrun_multichip
 from meshanything_tpu_torch.parallel.launch import start_ranks, wait_ranks
@@ -46,17 +50,42 @@ GRAD_RTOL = 1e-4
 CLIP = 0.05         # every update clipped: the clip's global norm decides it
 STEPS = 3
 WORLD = 4
-GENERATE_CASES = ("dp", "tp", "dp_tp", "tp_lookahead", "dp_tp_lookahead")
+FAST = {"attn": "pallas_int8", "lookahead": 4, "wq": True}     # --fast at window 4
+# case -> generate's keywords; the prefix names the mesh: dp (4, 1), tp (1, 4),
+# dp_tp (2, 2)
+GENERATE_CASES = {
+    "dp": {}, "tp": {}, "dp_tp": {}, "tp_lookahead": {"lookahead": 4},
+    "dp_tp_lookahead": {"lookahead": 4},
+    "tp_int8": {"attn": "pallas_int8"}, "tp_int4": {"attn": "pallas_int4"},
+    "dp_tp_int4": {"attn": "pallas_int4"},
+    "tp_int4_lookahead": {"attn": "pallas_int4", "lookahead": 4},
+    "tp_fast": FAST, "dp_tp_fast": FAST,
+    "tp_megakernel": {"attn": "megakernel"}, "dp_tp_megakernel": {"attn": "megakernel"},
+}
+QMAX = {"pallas_int8": 127, "pallas_int4": 7}
+# the decode states whose caches the ranks keep: (tier, lookahead window)
+CACHE_CASES = {"int8_decode": ("pallas_int8", 0), "int4_lookahead": ("pallas_int4", 4)}
+
+
+def _tier(kw: dict) -> tuple:
+    """generate's keywords -> (attn, lookahead, wq), JAX's run key."""
+    return kw.get("attn", "pallas"), kw.get("lookahead", 0), kw.get("wq", False)
 
 WORKER = r"""
+import json
 import os
 import torch
 from meshanything_tpu_torch.config import small_test_config
 from meshanything_tpu_torch.models import meshanything as ma
+from meshanything_tpu_torch.models import lookahead as la_mod
 from meshanything_tpu_torch.models import shape_opt as opt_mod
+from meshanything_tpu_torch.models.layers import row_lin
+from meshanything_tpu_torch.ops import kvcache, wquant
+from meshanything_tpu_torch.parallel import collectives
 from meshanything_tpu_torch.parallel import mesh as pmesh
 from meshanything_tpu_torch.parallel.multihost import process_info
 from meshanything_tpu_torch.runtime.checkpoint import load_native
+from meshanything_tpu_torch.runtime.phases import PhaseRunner
 from meshanything_tpu_torch.training import losses, train
 from meshanything_tpu_torch.training.optim import make_optimizer
 
@@ -82,30 +111,52 @@ res = {"mesh22": (m22.data, m22.model, m22.data_index, m22.model_index, m22.rank
 
 with torch.no_grad():
     res["forward"] = ma.forward_logits(local22, cfg, x["pc"][:2], x["toks"], mesh=m22)
-    runs = {"dp": (full, m41, 0), "tp": (local14, None, 0), "dp_tp": (local22, m22, 0),
-            "tp_lookahead": (local14, None, 4), "dp_tp_lookahead": (local22, m22, 4)}
-    for name, (model, mesh, la) in runs.items():
-        out = ma.generate(model, cfg, x["pc"], bucket=16, lookahead=la, mesh=mesh)
+    meshes = {"dp": (full, m41), "tp": (local14, None), "dp_tp": (local22, m22)}
+    cases = json.load(open(os.path.join(d, "cases.json")))
+    for name, kw in cases["generate"].items():
+        model, mesh = meshes["dp_tp" if name.startswith("dp_tp") else name.split("_")[0]]
+        out = ma.generate(model, cfg, x["pc"], bucket=16, mesh=mesh, **kw)
         res["gen_" + name] = (out.token_ids, out.face_coords)
+    # the (1, 4) runner in the fast tier, the shared device side of the entry points
+    runner = PhaseRunner(local14, cfg, bucket=16, attn="pallas_int8", lookahead=4, wq=True)
+    res["runner_fast"] = runner(x["pc"]).token_ids
 
-    refused = {}
-    _, cond = ma.encode(local14, cfg, x["pc"][:1])
-    for attn in ("pallas_int8", "pallas_int4", "megakernel"):
-        try:
-            opt_mod.init_decode_state(local14.opt, cfg.opt, cond, max_new_tokens=4,
-                                      bucket=16, attn=attn)
-        except NotImplementedError as e:
-            refused[attn] = str(e)
-    try:
-        ma.generate(local14, cfg, x["pc"][:1], bucket=16, wq=True)
-    except NotImplementedError as e:
-        refused["wq"] = str(e)
     try:
         opt_mod.check_capture(local14.opt)
     except ValueError as e:
-        refused["graph_gloo"] = str(e)
+        res["graph_gloo"] = str(e)
     opt_mod.check_capture(full.opt)        # no model group: captures
-    res["refused"] = refused
+
+    # the parts under the (1, 4) model group, each rank on its columns
+    g14, me = m14.model_group, m14.model_index
+    res["max"] = collectives.all_reduce_max(x["max_in"][me], g14)
+    cols = x["qrows"].shape[-1] // 4
+    mine = x["qrows"][..., me * cols:(me + 1) * cols]
+    res["quantized"] = {"int8": kvcache.quantize_rows(mine, g14),
+                        "int4": kvcache.quantize_rows_int4(mine, g14),
+                        "int8_rank_local_scale": kvcache.quantize_rows(mine)[1]}
+    feats = x["w8a8_w"].shape[1] // 4
+    w_mine = x["w8a8_w"][:, me * feats:(me + 1) * feats]
+    entry = wquant.QuantizedLinear(*wquant.quantize_weight(w_mine, g14), x["w8a8_b"])
+    res["w8a8"] = {str(dtype)[6:]: row_lin(x["w8a8_x"][:, me * feats:(me + 1) * feats].to(dtype),
+                                           entry, g14) for dtype in (torch.float32, torch.bfloat16)}
+    res["w8a8_scale"] = entry.scale
+    # the caches that the decode left: every written row's scale is the rows' over the
+    # group (equal on every rank, some rank's code at the largest code)
+    _, cond = ma.encode(local14, cfg, x["pc"])
+    gl = cfg.generate_length
+    res["caches"] = {}
+    for name, (attn, window) in cases["caches"].items():
+        if window:
+            st = la_mod.init_lookahead_state(local14.opt, cfg.opt, cond, max_new_tokens=gl,
+                                             window=window, bucket=16, attn=attn)
+            st = la_mod.lookahead_segment(local14.opt, cfg.opt, st, max_new_tokens=gl,
+                                          wq_layers=wquant.quantize_opt_layers(local14.opt.layers))
+        else:
+            st = opt_mod.init_decode_state(local14.opt, cfg.opt, cond, max_new_tokens=gl,
+                                           bucket=16, attn=attn)
+            st = opt_mod.decode_loop(local14.opt, cfg.opt, st, max_new_tokens=gl)
+        res["caches"][name] = st.kv
 
 opt = make_optimizer(1e-3, steps=20, clip_norm=0.05)
 state, step = train.make_sharded_train_step(m22, cfg, load_native(ckpt, cfg, device="cpu"), opt)
@@ -135,6 +186,19 @@ torch.distributed.destroy_process_group()
 """
 
 
+def _parts_inputs(rng) -> dict:
+    """The parts' inputs: each column of the K/V rows and of the W8A8 input
+    features at a scale of its own (so the amax lies on one rank), and a
+    max input a rank."""
+    col = rng.uniform(0.05, 3.0, size=32).astype(np.float32)
+    feat = rng.uniform(0.05, 3.0, size=64).astype(np.float32)
+    return {"qrows": (rng.normal(size=(2, 2, 2, 5, 32)) * col).astype(np.float32),
+            "w8a8_w": (rng.normal(size=(32, 64)) * feat).astype(np.float32),
+            "w8a8_x": (rng.normal(size=(3, 64)) * feat[::-1]).astype(np.float32),
+            "w8a8_b": rng.normal(size=32).astype(np.float32),
+            "max_in": rng.normal(size=(WORLD, 3, 7)).astype(np.float32)}
+
+
 def _jax_tree():
     jcfg = jax_small_config(n_max_triangles=N_MAX)
     params = jax.jit(jma.init_meshanything_params, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
@@ -157,8 +221,10 @@ def run(tmp_path_factory):
     tpc, tids, tlab = jtrain.make_batch(jcfg, np.random.default_rng(1), batch=4, seq=SEQ)
     con_a, con_b = (rng.normal(size=(8, 8)).astype(np.float32) for _ in range(2))
     x = {"pc": pc, "toks": toks, "train_pc": tpc, "train_ids": tids, "train_labels": tlab,
-         "con_a": con_a, "con_b": con_b, "con_scale": np.float32(7.0)}
+         "con_a": con_a, "con_b": con_b, "con_scale": np.float32(7.0), **_parts_inputs(rng)}
     np.savez(os.path.join(d, "inputs.npz"), **x)
+    with open(os.path.join(d, "cases.json"), "w") as f:
+        json.dump({"generate": GENERATE_CASES, "caches": CACHE_CASES}, f)
     # a one-process train state, which the ranks restore into their shards
     single, single_step = ttrain.make_train_step(cfg, params_from_jax_numpy(tree, cfg),
                                                  make_optimizer(LR, steps=20, clip_norm=CLIP))
@@ -173,6 +239,7 @@ def run(tmp_path_factory):
         wait_ranks(procs, timeout=400)
     ranks = [torch.load(os.path.join(d, f"out{r}.pt"), weights_only=False)
              for r in range(WORLD)]
+    want["inputs"] = x
     return want, ranks, d, single
 
 
@@ -181,10 +248,10 @@ def _jax_side(jcfg, jparams, x):
     forward = jax.jit(lambda p, a, b: jma.forward_logits(p, jcfg, a, b))
     want = {"forward": np.asarray(forward(jparams, jnp.asarray(x["pc"][:2]),
                                           jnp.asarray(x["toks"].astype(np.int32))))}
-    for la in (0, 4):
-        out = jma.generate(jparams, jcfg, jnp.asarray(x["pc"]), bucket=BUCKET, attn="pallas",
-                           lookahead=la)
-        want[f"generate_{la}"] = (np.asarray(out.token_ids), np.asarray(out.face_coords))
+    for attn, la, wq in dict.fromkeys(_tier(kw) for kw in GENERATE_CASES.values()):
+        out = jma.generate(jparams, jcfg, jnp.asarray(x["pc"]), bucket=BUCKET, attn=attn,
+                           lookahead=la, wq=wq)
+        want[(attn, la, wq)] = (np.asarray(out.token_ids), np.asarray(out.face_coords))
 
     grad_fn = jax.jit(jax.value_and_grad(lambda p, a, b, c: jtrain.loss_fn(p, jcfg, a, b, c),
                                          has_aux=True))
@@ -340,29 +407,116 @@ def test_dp_tp_forward_matches_jax(run):
 @pytest.mark.parametrize("case", GENERATE_CASES)
 def test_sharded_generate_matches_jax(run, case):
     """Greedy generate of four rows under data (4, 1), tensor (1, 4) and
-    both (2, 2) parallelism, single-token and lookahead 4, token-identical
-    on every rank to JAX's single-device generate(attn="pallas") in
-    interpret mode; the coordinates identical (NaN-aware)."""
+    both (2, 2) parallelism, in the case's tier (the exact one, the int8
+    and int4 caches, ``--fast``'s int8 + lookahead + W8A8, the megakernel;
+    single-token and lookahead 4), token-identical on every rank to JAX's
+    single-device generate of the same tier in interpret mode (what GSPMD
+    computes over a mesh); the coordinates identical (NaN-aware)."""
     want, ranks, _, _ = run
-    tokens, coords = want["generate_4" if case.endswith("lookahead") else "generate_0"]
+    tokens, coords = want[_tier(GENERATE_CASES[case])]
     for r in ranks:
         got_tokens, got_coords = r["gen_" + case]
         np.testing.assert_array_equal(got_tokens.numpy(), tokens)
         np.testing.assert_array_equal(got_coords.numpy(), coords)
 
 
-@pytest.mark.parametrize("what", ["pallas_int8", "pallas_int4", "megakernel", "wq",
-                                  "graph_gloo"])
-def test_tensor_parallel_refuses_what_is_not_ported(run, what):
-    """Under a model group the int8/int4 caches, the megakernel and W8A8
-    raise "not ported yet" naming the ROADMAP item; a graph capture over a
-    gloo group raises (the decode must ask for graph=False)."""
+def test_tp_phase_runner_fast_tier_matches_jax(run):
+    """``PhaseRunner`` over a (1, 4) model group in the fast tier (int8 +
+    lookahead 4 + W8A8): every rank's tokens equal JAX's single-device
+    generate of that tier."""
+    want, ranks, _, _ = run
+    tokens, _ = want[_tier(FAST)]
+    for r in ranks:
+        np.testing.assert_array_equal(r["runner_fast"].numpy(), tokens)
+
+
+def test_gloo_model_group_refuses_graph_capture(run):
+    """A graph capture of a step with collectives over a gloo model group
+    raises (the decode must ask for graph=False); without a group it
+    captures."""
     _, ranks, _, _ = run
-    message = ranks[0]["refused"][what]
-    if what == "graph_gloo":
-        assert "gloo" in message and "graph=False" in message
-    else:
-        assert "not ported yet" in message and "ROADMAP Queue 1 item 8" in message
+    message = ranks[0]["graph_gloo"]
+    assert "gloo" in message and "graph=False" in message
+
+
+def test_all_reduce_max_equal_on_every_rank(run):
+    """all_reduce_max over the (1, 4) model group: every rank holds the
+    elementwise max of the four ranks' inputs, bit for bit."""
+    want, ranks, _, _ = run
+    expect = want["inputs"]["max_in"].max(axis=0)
+    for r in ranks:
+        np.testing.assert_array_equal(r["max"].numpy(), expect)
+
+
+def _one_process_rows(want, bits: int):
+    rows = torch.from_numpy(want["inputs"]["qrows"])
+    return (kvcache.quantize_rows if bits == 8 else kvcache.quantize_rows_int4)(rows)
+
+
+def test_tp_int8_codes_and_scales_equal_one_process(run):
+    """Each rank quantizes its quarter of the K/V rows' columns over the
+    (1, 4) model group: the codes joined in rank order are one process's
+    int8 codes and every rank's scales are one process's, bit for bit. A
+    rank-local scale differs (the inputs put a row's amax on one rank)."""
+    want, ranks, _, _ = run
+    codes, scales = _one_process_rows(want, 8)
+    got = torch.cat([r["quantized"]["int8"][0] for r in ranks], dim=-1)
+    assert torch.equal(got, codes)
+    for r in ranks:
+        assert torch.equal(r["quantized"]["int8"][1], scales)
+    assert not all(torch.equal(r["quantized"]["int8_rank_local_scale"], scales) for r in ranks)
+
+
+def test_tp_int4_plane_words_unpack_to_one_process_codes(run):
+    """int4 over the (1, 4) group: each rank packs its columns in the plane
+    layout over its own width (a word a row here); unpack_int4 of each
+    rank's words, joined in rank order, is unpack_int4 of one process's
+    words, and every rank's scales are one process's."""
+    want, ranks, _, _ = run
+    words, scales = _one_process_rows(want, 4)
+    got = torch.cat([kvcache.unpack_int4(r["quantized"]["int4"][0]) for r in ranks], dim=-1)
+    assert ranks[0]["quantized"]["int4"][0].shape[-1] == words.shape[-1] // 4
+    assert torch.equal(got, kvcache.unpack_int4(words))
+    for r in ranks:
+        assert torch.equal(r["quantized"]["int4"][1], scales)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_parallel_w8a8_equals_one_process(run, dtype):
+    """A row-parallel W8A8 product (``row_lin`` of a QuantizedLinear, each
+    rank a quarter of the input features) over the (1, 4) group: the
+    weight scales and the result on every rank are one process's
+    ``linear_w8a8`` bit for bit (int32 accumulators summed, the bias
+    once)."""
+    want, ranks, _, _ = run
+    x = want["inputs"]
+    wq, scale = wquant.quantize_weight(torch.from_numpy(x["w8a8_w"]))
+    expect = wquant.linear_w8a8(torch.from_numpy(x["w8a8_x"]).to(getattr(torch, dtype)), wq,
+                                scale, torch.from_numpy(x["w8a8_b"]))
+    for r in ranks:
+        assert torch.equal(r["w8a8_scale"], scale)
+        assert r["w8a8"][dtype].dtype == expect.dtype
+        assert torch.equal(r["w8a8"][dtype], expect)
+
+
+@pytest.mark.parametrize("case", CACHE_CASES)
+def test_tp_decode_caches_share_the_group_scale(run, case):
+    """The caches that a (1, 4) decode left (int8 single-token; int4 with
+    lookahead 4 and W8A8): every written row's scales are equal on the
+    four ranks, and some rank holds the row's largest code (127, or 7):
+    the scale is the whole row's, not a rank's own."""
+    _, ranks, _, _ = run
+    attn, _ = CACHE_CASES[case]
+    values = [r["caches"][case][0] for r in ranks]
+    scales = [r["caches"][case][1] for r in ranks]
+    written = scales[0][..., 0, :] != 1.0                       # (2, L, B, S)
+    cond = small_test_config(n_max_triangles=N_MAX).opt.cond_length
+    assert int(written.sum(dim=-1).min()) > cond
+    for s in scales[1:]:
+        assert torch.equal(s, scales[0])
+    codes = [v if attn == "pallas_int8" else kvcache.unpack_int4(v) for v in values]
+    top = torch.stack([c.abs().amax(dim=-1) for c in codes]).amax(dim=0)   # (2, L, B, S)
+    assert torch.all(top[written] == QMAX[attn])
 
 
 def test_sharded_train_steps_match_jax(run):
@@ -432,10 +586,24 @@ def test_sharded_checkpoint_resumes_in_one_process_and_back(run):
 
 
 def test_dryrun_multichip_four_processes():
-    """dryrun_multichip(4): a (2, 2) train step, sharded generate,
-    lookahead under data parallelism and the segmented int8/int4 decode
-    and lookahead, each token-identical to one process."""
+    """dryrun_multichip(4): a (2, 2) train step, sharded generate (every
+    tier, and ``PhaseRunner`` in every tier), lookahead under data
+    parallelism and the segmented int8/int4 decode and lookahead, each
+    token-identical to one process."""
     line = dryrun_multichip(4, timeout=400)
     assert line.startswith("dryrun_multichip OK: mesh=(2x2)")
-    for name in ("segmented_pallas_int8", "segmented_lookahead_pallas_int4", "lookahead"):
+    for name in ("segmented_pallas_int8", "segmented_lookahead_pallas_int4", "lookahead",
+                 "generate_fast", "runner_megakernel"):
         assert name in line
+
+
+def test_dryrun_multichip_two_processes():
+    """dryrun_multichip(2): the same over a (1, 2) mesh: the sharded
+    generate and ``PhaseRunner`` of a model group of two in every tier
+    (int8, int4, --fast, the megakernel, and the runner's adaptive
+    lookahead over int4) token-identical to one process."""
+    line = dryrun_multichip(2, timeout=400)
+    assert line.startswith("dryrun_multichip OK: mesh=(1x2)")
+    for tier in ("exact", "int8", "int4", "fast", "megakernel"):
+        assert f"generate_{tier}" in line and f"runner_{tier}" in line
+    assert "runner_int4_adaptive" in line
