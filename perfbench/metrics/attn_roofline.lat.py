@@ -1,0 +1,9 @@
+"""The attention kernel's share of its roofline, in percent, over the traced
+slices: the bytes and FLOPs its calls need (``counts.attention_call``) on
+the published peaks, over its summed device time."""
+from perfbench import counts, devtrace
+
+
+def read(run):
+    return counts.roof_share(run, "attention",
+                             devtrace.kernel_seconds(run.slices, run.kernels("attention")))
