@@ -39,6 +39,7 @@ not the JAX package's draws.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -59,7 +60,7 @@ from meshanything_tpu_torch.ops.decode_attention import decode_attention_mq
 from meshanything_tpu_torch.ops.kvcache import QUANTIZED, quantize_rows_for
 from meshanything_tpu_torch.ops.sampling import sample_token, top_k_filter, top_p_filter
 from meshanything_tpu_torch.ops.wquant import lin_dispatch, quantize_opt_layers
-from meshanything_tpu_torch.runtime import decode_graph
+from meshanything_tpu_torch.runtime import decode_graph, profiling
 
 # forwards between the host's reads of the live flags on the card (a
 # forward past the last live one changes nothing, so up to CHECK_EVERY - 1
@@ -323,41 +324,55 @@ def lookahead_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *
     ``state.graphs``; a capture that fails raises. With ``graph=False``
     (the eager comparison) and on the CPU the forward runs eagerly.
     Speculative sampling with a generator that the installed torch cannot
-    register with a graph runs eagerly, with a warning."""
+    register with a graph runs eagerly, with a warning.
+
+    The forwards between two reads are a ``segment`` span
+    (``runtime/profiling.py``), as ``shape_opt.decode_segment`` records
+    one: ``pos`` its first forward, ``steps`` its forwards."""
     def forward():
         _window_step(p, cfg, state, max_new_tokens=max_new_tokens, wq_layers=wq_layers,
                      sampling=sampling, top_k=top_k, top_p=top_p, max_accept=max_accept)
 
-    use_graph = decode_graph.use_graph(state.tokens.device, graph) and (
+    device = state.tokens.device
+    use_graph = decode_graph.use_graph(device, graph) and (
         not sampling or decode_graph.generator_capturable())
-    while True:
-        state.iters, live = _read_counters(state, max_new_tokens)
-        if not live or (until_iters is not None and state.iters >= until_iters):
-            return state
+    state.iters, live = _read_counters(state, max_new_tokens)
+    while live and (until_iters is None or state.iters < until_iters):
         n = CHECK_EVERY if use_graph or state.tokens.is_cuda else 1
         if until_iters is not None:
             n = min(n, until_iters - state.iters)
-        if not use_graph:
-            for _ in range(n):
-                forward()
-            continue
-        w = state.window.shape[1]
-        key = (max_new_tokens, sampling, top_k, top_p, max_accept, id(wq_layers))
-        g = state.graphs.get(w)
-        if g is None:
-            check_capture(p)
-            g = decode_graph.StepGraph(forward, state.tokens.device,
-                                       generator=state.generator if sampling else None, key=key)
-            g.window = state.window        # the window tensor the graph reads and writes
-            state.graphs[w] = g
-            n -= 1      # the warm-up before the capture was the first of these forwards
-        elif g.key != key:
-            raise ValueError("the segments of one request replay one captured forward a "
-                             "width: the settings changed between segments")
-        elif state.window is not g.window:   # resized since: move the window into the graph's
-            g.window.copy_(state.window)
-            state.window = g.window
-        g.replay(n)
+        with profiling.span("segment", pos=state.iters, steps=n) as sp:
+            if not use_graph:
+                sp.device_begin(device)
+                t0 = time.perf_counter_ns()
+                for _ in range(n):
+                    forward()
+            else:
+                w = state.window.shape[1]
+                key = (max_new_tokens, sampling, top_k, top_p, max_accept, id(wq_layers))
+                g, warm = state.graphs.get(w), 0
+                if g is None:
+                    check_capture(p)
+                    g = decode_graph.StepGraph(forward, device, key=key,
+                                               generator=state.generator if sampling else None)
+                    g.window = state.window        # the window tensor the graph reads and writes
+                    state.graphs[w] = g
+                    warm = 1    # the warm-up before the capture was the first of these forwards
+                    sp.set(captured=1)
+                elif g.key != key:
+                    raise ValueError("the segments of one request replay one captured forward a "
+                                     "width: the settings changed between segments")
+                sp.device_begin(device)
+                t0 = time.perf_counter_ns()
+                if state.window is not g.window:   # resized since: move the window into the graph's
+                    g.window.copy_(state.window)
+                    state.window = g.window
+                g.replay(n - warm)
+            t1 = time.perf_counter_ns()
+            sp.device_end()
+            state.iters, live = _read_counters(state, max_new_tokens)
+            sp.set(launch_ns=t1 - t0, sync_ns=time.perf_counter_ns() - t1)
+    return state
 
 
 def run_adaptive_controller(state: LookaheadState, seg_fn: Callable, *, windows=(8, 16),

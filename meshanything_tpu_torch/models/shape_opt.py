@@ -67,6 +67,7 @@ under gloo it runs eagerly (``graph=False``; a capture asked for raises).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -96,7 +97,7 @@ from meshanything_tpu_torch.ops.sampling import sample_token
 from meshanything_tpu_torch.ops.wquant import lin_dispatch, quantize_opt_layers
 from meshanything_tpu_torch.parallel.collectives import capturable
 from meshanything_tpu_torch.parallel.mesh import gather_module
-from meshanything_tpu_torch.runtime import decode_graph
+from meshanything_tpu_torch.runtime import decode_graph, profiling
 
 ATTN_MODES = ("pallas", "pallas_int8", "pallas_int4", "megakernel")
 # a cache: one (2, L, B, S, H*D) tensor, or (values, scales) when quantized
@@ -544,31 +545,48 @@ def decode_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
     kept in ``state.graph``; a capture that fails raises. Elsewhere, and
     with ``graph=False`` (the eager comparison), the same step runs
     eagerly. Sampling with a generator that the installed torch cannot
-    register with a graph runs eagerly, with a warning."""
+    register with a graph runs eagerly, with a warning.
+
+    The segment is a ``segment`` span (``runtime/profiling.py``): its
+    device time covers the replays or eager steps (from after a capture),
+    with its first step, the steps run, the host's launch time and its
+    wait at the read as attributes."""
     bound = max_new_tokens if until is None else min(int(until), max_new_tokens)
     n = bound - state.step
     step_kw = dict(wq_layers=wq_layers, mega_layers=mega_layers, sampling=sampling, top_k=top_k,
                    top_p=top_p, temperature=temperature, early_exit=early_exit)
-    on_card = state.tokens.is_cuda
-    if n > 0 and decode_graph.use_graph(state.tokens.device, graph) and (
-            state.attn != "megakernel") and (not sampling or decode_graph.generator_capturable()):
-        key = (early_exit, sampling, top_k, top_p, temperature, id(wq_layers))
-        if state.graph is None:
-            check_capture(p)
-            state.graph = decode_graph.StepGraph(
-                lambda: step_body(p, cfg, state, **step_kw), state.tokens.device,
-                generator=state.generator if sampling else None, key=key)
-            n -= 1      # the warm-up before the capture was this segment's first step
-        elif state.graph.key != key:
-            raise ValueError("the segments of one request replay one captured step: "
-                             "the settings changed between segments")
-        state.graph.replay(n)
-    else:
-        for _ in range(max(n, 0)):
-            if not on_card and early_exit and bool(state.done.all()):
-                break       # on the CPU the read costs nothing, the no-op steps do
-            decode_step(p, cfg, state, **step_kw)
-    state.step = int(state.step_t)
+    device = state.tokens.device
+    with profiling.span("segment", pos=state.step) as sp:
+        ran = 0
+        if n > 0 and decode_graph.use_graph(device, graph) and (state.attn != "megakernel") and (
+                not sampling or decode_graph.generator_capturable()):
+            key = (early_exit, sampling, top_k, top_p, temperature, id(wq_layers))
+            if state.graph is None:
+                check_capture(p)
+                state.graph = decode_graph.StepGraph(
+                    lambda: step_body(p, cfg, state, **step_kw), device,
+                    generator=state.generator if sampling else None, key=key)
+                ran, n = 1, n - 1   # the warm-up before the capture was this segment's first step
+                sp.set(captured=1)
+            elif state.graph.key != key:
+                raise ValueError("the segments of one request replay one captured step: "
+                                 "the settings changed between segments")
+            sp.device_begin(device)
+            t0 = time.perf_counter_ns()
+            state.graph.replay(n)
+            ran += n
+        else:
+            sp.device_begin(device)
+            t0 = time.perf_counter_ns()
+            for _ in range(max(n, 0)):
+                if device.type != "cuda" and early_exit and bool(state.done.all()):
+                    break       # on the CPU the read costs nothing, the no-op steps do
+                decode_step(p, cfg, state, **step_kw)
+                ran += 1
+        t1 = time.perf_counter_ns()
+        sp.device_end()
+        state.step = int(state.step_t)
+        sp.set(steps=ran, launch_ns=t1 - t0, sync_ns=time.perf_counter_ns() - t1)
     return state
 
 

@@ -25,7 +25,9 @@ state and its graphs for each batch size and mode across requests: a new
 request's prefill is written into the kept state's tensors
 (``refill_state``) and the graph captured for an earlier request
 replays it. ``pool_bytes`` is what a capture's private memory pool took
-from the card (the budget counts it while the state is kept).
+from the card (the budget counts it while the state is kept). Each capture
+is a ``capture`` span (``runtime/profiling.py``), whose host time is
+``capture_s``; no span records a CUDA event while a capture is underway.
 
 Sampling draws from a ``torch.Generator`` that the graph registers
 (``CUDAGraph.register_generator_state``): the request's own, or, for a
@@ -39,11 +41,12 @@ keep the sampled mode eager, with a warning.
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from typing import Callable, Optional
 
 import torch
+
+from meshanything_tpu_torch.runtime import profiling
 
 _streams: dict = {}
 
@@ -87,22 +90,23 @@ class StepGraph:
 
     def __init__(self, fn: Callable[[], object], device: torch.device, *,
                  generator: Optional[torch.Generator] = None, key=None):
-        t0 = time.perf_counter()
-        stream = capture_stream(device)
-        current = torch.cuda.current_stream(device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):      # the warm-up: a real step, the stream's first call
-            fn()
-        current.wait_stream(stream)
-        self.graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            self.graph.register_generator_state(generator)
-        reserved = torch.cuda.memory_reserved(device)
-        with torch.cuda.graph(self.graph, stream=stream):
-            fn()
-        torch.cuda.synchronize(device)
-        self.pool_bytes = max(torch.cuda.memory_reserved(device) - reserved, 0)
-        self.capture_s = time.perf_counter() - t0     # the warm-up step's time included
+        with profiling.span("capture") as sp:      # the warm-up step's time included
+            stream = capture_stream(device)
+            current = torch.cuda.current_stream(device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):      # the warm-up: a real step, the stream's first call
+                fn()
+            current.wait_stream(stream)
+            self.graph = torch.cuda.CUDAGraph()
+            if generator is not None:
+                self.graph.register_generator_state(generator)
+            reserved = torch.cuda.memory_reserved(device)
+            with profiling.RECORDER.capturing(), torch.cuda.graph(self.graph, stream=stream):
+                fn()
+            torch.cuda.synchronize(device)
+            self.pool_bytes = max(torch.cuda.memory_reserved(device) - reserved, 0)
+            sp.set(pool_bytes=self.pool_bytes)
+        self.capture_s = sp.seconds
         self.key = key
         self.replayed = 0
         StepGraph.captures += 1

@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from collections import OrderedDict
 from typing import Optional
 
@@ -46,6 +45,7 @@ import torch
 
 from meshanything_tpu_torch.config import MeshAnythingConfig
 from meshanything_tpu_torch.parallel.collectives import group_size
+from meshanything_tpu_torch.runtime import profiling
 
 # Kept free of the card's total memory: the CUDA context and the kernels'
 # code, cuBLAS workspaces, and the caching allocator's fragmentation.
@@ -454,7 +454,11 @@ class PhaseRunner:
         """One padded batch (B, N, 6) on the device -> coords, raw tokens,
         decode steps and the seconds of each phase (fenced on the device);
         ``prompt_ids`` (B, P) continues a token prefix. On a card the batch
-        is first held against the card's memory. ``timer``
+        is first held against the card's memory. The request and its
+        phases are spans (``runtime/profiling.py``: ``request``, ``encode``,
+        ``prefill``, ``decode`` with its ``segment`` spans, ``detok``), and
+        the seconds returned are their host times (``decode_s`` from the
+        prefill's start to the loop's end). ``timer``
         (``runtime/profiling.py::PhaseTimer``) is fed the three phases."""
         with self.lock:
             return self._generate(pc_normal, sampling, generator, prompt_ids, timer)
@@ -484,42 +488,40 @@ class PhaseRunner:
     def _generate(self, pc_normal, sampling, generator, prompt_ids, timer) -> dict:
         from meshanything_tpu_torch.models import meshanything as ma
         from meshanything_tpu_torch.models import shape_opt as opt_mod
-        from meshanything_tpu_torch.runtime.profiling import fence
 
-        cfg, m = self.cfg, self.model
+        cfg, m, dev = self.cfg, self.model, self.device
+        b = pc_normal.shape[0]
         p_len = 0 if prompt_ids is None else prompt_ids.shape[1]
-        self._budget(pc_normal.shape[0], p_len, (pc_normal.shape[0], sampling))
-        if prompt_ids is not None:
-            prompt_ids = torch.as_tensor(prompt_ids).to(self.device, torch.int64)
-        times = {}
-
-        def done(name: str, t0: float) -> None:
-            fence(self.device)
-            times[f"{name}_s"] = time.perf_counter() - t0
-            if timer is not None:
+        with profiling.span("request", batch=b) as req:
+            self._budget(b, p_len, (b, sampling))
+            if prompt_ids is not None:
+                prompt_ids = torch.as_tensor(prompt_ids).to(dev, torch.int64)
+            with profiling.span("encode", device=dev, fence=dev) as encode:
+                point_feature, cond = ma.encode(m, cfg, pc_normal)
+            with profiling.span("prefill", device=dev, prompt_tokens=p_len) as prefill:
+                state, kept, before = self._init_state(cond, sampling, generator, prompt_ids)
+            with profiling.span("decode", fence=dev) as decode:
+                if self.lookahead:
+                    out = self._decode_lookahead(state, sampling, p_len)
+                else:
+                    state = opt_mod.decode_loop(
+                        m.opt, cfg.opt, state, max_new_tokens=cfg.generate_length, wq=self.wq,
+                        sampling=sampling, graph=self.graph, early_exit=self.early_exit,
+                        wq_layers=self._wq())
+                    out = {"tokens": state.tokens.clone(), "decode_steps": state.step - 1 - p_len}
+                out.update(_graph_stats(_graphs_of(state), before))
+                self._finish(kept, generator)
+                del state       # unkept (megakernel): the cache goes before detok allocates
+            with profiling.span("detok", device=dev, fence=dev) as detok:
+                coords = ma.detokenize(m, cfg, out["tokens"], point_feature)
+            req.set(**{k: out[k] for k in ("decode_steps", "graph_captures", "graph_replays")})
+        # the decode phase runs from the prefill's start to the loop's fenced end
+        times = {"encode_s": encode.seconds,
+                 "decode_s": (decode.span.end_ns - prefill.span.start_ns) / 1e9,
+                 "detok_s": detok.seconds}
+        if timer is not None:
+            for name in ("encode", "decode", "detok"):
                 timer.record(name, times[f"{name}_s"])
-
-        t0 = time.perf_counter()
-        point_feature, cond = ma.encode(m, cfg, pc_normal)
-        done("encode", t0)
-
-        t0 = time.perf_counter()
-        state, kept, before = self._init_state(cond, sampling, generator, prompt_ids)
-        if self.lookahead:
-            out = self._decode_lookahead(state, sampling, p_len)
-        else:
-            state = opt_mod.decode_loop(m.opt, cfg.opt, state, max_new_tokens=cfg.generate_length,
-                                        wq=self.wq, sampling=sampling, graph=self.graph,
-                                        early_exit=self.early_exit, wq_layers=self._wq())
-            out = {"tokens": state.tokens.clone(), "decode_steps": state.step - 1 - p_len}
-        out.update(_graph_stats(_graphs_of(state), before))
-        self._finish(kept, generator)
-        del state               # unkept (megakernel): the cache goes before detok allocates
-        done("decode", t0)
-
-        t0 = time.perf_counter()
-        coords = ma.detokenize(m, cfg, out["tokens"], point_feature)
-        done("detok", t0)
         return {"coords": coords, **out, **times}
 
 
