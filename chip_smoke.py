@@ -15,8 +15,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
   2. build: K1 (csrc/decode_attention.cu), the tensor-core K4 over bf16,
      int8 and int4 caches (csrc/decode_attention_window.cu), K2 and K3
      (csrc/decode_attention_quant.cu), the other K4s
-     (csrc/decode_attention_fast.cu), K5 (csrc/megakernel.cu) and T4
-     (csrc/k1_probe.cu) are compiled with nvcc, all six at once;
+     (csrc/decode_attention_fast.cu), K5 (csrc/megakernel.cu), T4
+     (csrc/k1_probe.cu) and the residual add and post-LN
+     (csrc/add_layer_norm.cu) are compiled with nvcc, all seven at once;
+  2a. add_ln: the residual add and post-LN kernel against its plain
+     version (``ln(x + y, m)``) at (1, 1024), (16, 1024), (16, 8, 1024) and
+     (2, 3, 64), bf16 (every element within one bf16 ulp, at least 99%
+     identical) and f32 (within 2e-6 of the row's largest element), one
+     launch a call; then timed at (1, 1024) and (16, 1024) bf16 over a
+     step's 48 norm sites (device time of CUDA-graph replays) beside its
+     byte bound, its plain version's time and F.layer_norm's on the sum
+     (the library call, which the port does not make);
   3. K1 against its plain PyTorch version at the production shapes
      (L=24, H=16, D=64, S=7680, layer 23; B 1 and 16; cur_len 1, 257,
      4000, 7459; f32 and bf16), with a NaN tail past cur_len and NaN in
@@ -89,11 +98,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
      --wq (K3; 50 faces), and InferencePipeline(attn="megakernel") on the same two
      inputs (M1 B=1, M2 B=2 cut to 400 faces; K5); the OBJs must parse
      and each run must launch exactly its kernel, 24 times per decode step
-     or window forward (K5: once a decode step), and no other kernel, and
-     return no error record; F3's K4 launches must all be the bf16
+     or window forward (K5: once a decode step), the residual add and
+     post-LN kernel 48 times per step or forward (K5: never), and no other
+     kernel, and return no error record; F3's K4 launches must all be the bf16
      tensor-core kernel's, F1's and F2's the int8/int4 one's. Every run
      but M1's and M2's decodes through CUDA-graph replays: the wrappers
-     launch in each graph's warm-up step and capture (24 each), the graph
+     launch in each graph's warm-up step and capture (24 each, the add
+     and post-LN 48), the graph
      does the rest, one replay a decode step or window forward;
   8a. graph_loop: the CLI runs of phase 8 but exact_meshes (its tier is
      exact_pc's) decode every batch a second time with the eager loop on
@@ -125,7 +136,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
      completion whose stream starts with its prompt, a malformed body
      (400); a --fast engine (K4 int8, W8A8, lookahead 8) serving two
      concurrent requests; K1's and the int8 K4's launches and graph
-     replays, and no other kernel's, counted per engine; then the CLI
+     replays, the residual add and post-LN's (twice either's), and no
+     other kernel's, counted per engine; then the CLI
      with --mc (B=2) and with --complete_from through phase 8's checks.
   12. train (``train_phase``): the trainer at the full 350M width on the
      face-grammar recipe (batch 4, lr 1e-3, k=5, one fixed batch): 100
@@ -135,7 +147,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
      checkpoint resumed to 100 bit-equal to the uninterrupted run; one step at
      7,459 positions (B=1, remat, SDPA); the trained weights in bf16
      through full_scale_probe (K1 and the bf16 K4, which must launch and
-     whose graphs must replay, each counted apart, and no other kernel):
+     whose graphs must replay, each counted apart, the add and post-LN
+     twice as often as both together, and no other kernel):
      acceptance, agreement, seconds.
   13. checkpoint (``checkpoint_phase``): a 350M reference-format file
      (safetensors, bf16, the reference's key names and the unread
@@ -155,7 +168,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
      precompile(1) a first request captures nothing, same tokens; a
      sampled pair with one seed on one runner equals a fresh runner's and
      the second captures nothing; a --fast ServingEngine's second request
-     captures nothing. K1 and the int8 K4 launch, no other kernel.
+     captures nothing. K1 and the int8 K4 launch, the add and post-LN
+     twice as often, no other kernel.
   15. parallel (``parallel_phase``): K1 and the bf16 K4 at a tensor-parallel
      rank's 8 and 4 heads against their plain versions; then, as processes
      of their own on this card over gloo (``parallel/launch.py``,
@@ -222,7 +236,14 @@ WINDOW_RTOL = 1e-2
 # at TOL["float32"].)
 QUANT_RTOL = 2e-2
 KERNEL_LIBS = ("decode_attention", "decode_attention_window", "decode_attention_quant",
-               "decode_attention_fast", "megakernel", "k1_probe")
+               "decode_attention_fast", "megakernel", "k1_probe", "add_layer_norm")
+# the residual add and post-LN kernel: rows of the exact tier's step at B 1 and 16, a
+# lookahead-8 window's at B=16, and a small 3-D input; timed over a step's 48 norm sites
+ADD_LN_SHAPES = ((1, 1024), (16, 1024), (16, 8, 1024), (2, 3, 64))
+ADD_LN_TIMED = ((1, 1024), (16, 1024))
+ADD_LN_SITES = 48
+ADD_LN_F32_ROW_RTOL = 2e-6        # f32: a few ulp of the row's largest element
+ADD_LN_BF16_SAME_MIN = 0.99       # bf16: every element within one ulp, 99% identical
 PROBE_GIB = 4                     # T1-T3 are timed on arrays of this size
 PROBE_CUR = 7168                  # live rows T4 is timed at (the TPU tool's)
 FFN = 4096                        # the 350M model's fc1 width
@@ -473,6 +494,80 @@ def check_k23(torch, da) -> dict:
 
 
 KV_DTYPES = {"bfloat16": "bfloat16", "float32": "float32", "int8": "int8", "int4": "int32"}
+
+
+def _add_ln_inputs(torch, gen, shape, dtype):
+    """x, y of ``shape`` and a LayerNorm over the last dim with random
+    weight and bias, on the card in ``dtype``."""
+    d = shape[-1]
+    x = torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5
+    y = torch.randn(shape, generator=gen, device="cuda")
+    m = torch.nn.LayerNorm(d, eps=1e-5, device="cuda")
+    m.weight.copy_(1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda"))
+    m.bias.copy_(0.1 * torch.randn(d, generator=gen, device="cuda"))
+    return x.to(dtype), y.to(dtype), m.to(dtype).requires_grad_(False)
+
+
+def check_add_ln(torch, aln) -> float:
+    """Phase add_ln, the check; returns the largest error against the
+    plain version (in the output's units)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst, failures = 0.0, []
+    for shape in ADD_LN_SHAPES:
+        for name in ("bfloat16", "float32"):
+            x, y, m = _add_ln_inputs(torch, gen, shape, getattr(torch, name))
+            before = aln.add_layer_norm.launches
+            out = aln.add_layer_norm(x, y, m)
+            plain = aln.add_layer_norm_reference(x, y, m)
+            torch.cuda.synchronize()
+            diff = (out.float() - plain.float()).abs()
+            same = (diff == 0).float().mean().item()
+            if name == "bfloat16":
+                _, exp = torch.frexp(plain.float().abs().clamp_min(
+                    torch.finfo(torch.bfloat16).tiny))
+                within = bool((diff <= torch.ldexp(torch.ones_like(diff), exp - 8)).all())
+                ok = within and same >= ADD_LN_BF16_SAME_MIN
+            else:
+                row = plain.float().abs().amax(dim=-1, keepdim=True)
+                within = bool((diff <= ADD_LN_F32_ROW_RTOL * row).all())
+                ok = within
+            ok = ok and aln.add_layer_norm.launches == before + 1
+            worst = max(worst, diff.max().item())
+            emit("add_ln_check", shape=list(shape), dtype=name, max_abs_err=diff.max().item(),
+                 identical_share=same, within=within, ok=ok)
+            if not ok:
+                failures.append((shape, name))
+    if failures:
+        raise AssertionError(f"add_layer_norm disagrees with its plain version: {failures}")
+    return worst
+
+
+def time_add_ln(torch, aln, card: str) -> dict:
+    """Phase add_ln, the timing: ms a call at each of ``ADD_LN_TIMED``
+    (bf16), over a step's 48 norm sites, each with its own x, y and norm;
+    the library call is F.layer_norm on the sum made beforehand."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    layer_norm = torch.nn.functional.layer_norm
+    times = {}
+    for shape in ADD_LN_TIMED:
+        sites = [_add_ln_inputs(torch, gen, shape, torch.bfloat16) for _ in range(ADD_LN_SITES)]
+        sums = [x + y for x, y, _ in sites]
+        d = shape[-1]
+        sweeps = {"kernel": lambda: [aln.add_layer_norm(x, y, m) for x, y, m in sites],
+                  "plain": lambda: [aln.add_layer_norm_reference(x, y, m) for x, y, m in sites],
+                  "library": lambda: [layer_norm(s, (d,), m.weight, m.bias, m.eps)
+                                      for s, (_, _, m) in zip(sums, sites)]}
+        t = _time_sweeps(torch, sweeps, ADD_LN_SITES)
+        rows = sites[0][0].numel() // d
+        # x and y read, the output written, weight and bias read once: 2 bytes an element;
+        # ~8 f32 operations an element (add, two sums, the normalization's four)
+        moved = 2 * (3 * rows * d + 2 * d)
+        t["bound_ms"], t["bound_by"] = bound(moved, 8 * rows * d, "float32")
+        times[rows] = t
+        emit("add_ln_time", shape=list(shape), dtype="bfloat16", sites=ADD_LN_SITES, **t,
+             bytes=moved, card=card)
+        del sites, sums, sweeps
+    return times
 
 
 def _k4_cache(torch, gen, kind: str, batch: int):
@@ -1508,9 +1603,11 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
     or the pipeline). Every kernel's count is set to 0 just before it and
     read just after: ``kernel`` must have launched 24 times per decode
     step (K1-K3) or per window forward (K4), or once per decode step
-    (K5), and no other kernel at all. A decode that replays CUDA graphs
-    (every tier's but K5's) launches through the wrappers in each graph's
-    warm-up step and in its capture, 24 times each, and the graph does
+    (K5), the residual add and post-LN kernel (``aln``) twice as often as
+    K1-K4 and never beside K5, and no other kernel at all. A decode that
+    replays CUDA graphs (every tier's but K5's) launches through the
+    wrappers in each graph's warm-up step and in its capture (24 times
+    each, ``aln`` 48), and the graph does
     the rest, one replay (one host launch) a step or forward: the warm-ups
     and replays must cover the decode steps (window forwards), and past
     the last live one run at most one segment's no-op steps.
@@ -1608,6 +1705,8 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
     # the steps (forwards) that went through the wrappers: each graph's warm-up and capture
     wrapped = 2 * captures if captures else units
     expected = {k: (per_unit * wrapped if k == kernel else 0) for k in wrappers}
+    # two residual adds and post-LNs a layer in each of those steps (forwards); K5 has its own
+    expected["aln"] = 2 * L * wrapped if kernel != "k5" else 0
     if launches != expected or units == 0:
         raise AssertionError(f"{name}: launches {launches}, expected {expected}")
     # every tier but K5's replays its steps: one warm-up step a graph, then one replay
@@ -1641,8 +1740,9 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
         "decode_steps": steps, "launches": launches, "k4_window_launches": window,
         "k4_quant_window_launches": quant_window, "graph_captures": captures,
         "graph_replays": replays,
-        # the kernel's launches inside the replayed graphs (24 a replay; K5: none)
-        "replayed_launches": per_unit * replays,
+        # the kernel's launches inside the replayed graphs (24 a replay; K5: none), and
+        # the residual add and post-LN kernel's (48 a replay)
+        "replayed_launches": per_unit * replays, "replayed_launches_add_ln": 2 * L * replays,
         "host_launches_per_unit": (replays + captures) / units if captures else None,
         "capture_s": sum(r["capture_s"] for r in batches.values()),
         "wall_s": wall,
@@ -1955,6 +2055,13 @@ def _serving_counts(wrappers: dict) -> dict:
             "graph_captures": StepGraph.captures, "graph_replays": StepGraph.replays}
 
 
+def _add_ln_follows(counts: dict, *attention: str) -> bool:
+    """Whether the residual add and post-LN kernel launched twice for each
+    launch of the attention kernels named: both run in every layer of a
+    decode step or window forward that goes through the wrappers."""
+    return counts["aln"] == 2 * sum(counts[k] for k in attention)
+
+
 def _zero_counts(wrappers: dict) -> None:
     from meshanything_tpu_torch.runtime.decode_graph import StepGraph
 
@@ -2078,15 +2185,17 @@ def serving_phase(torch, wrappers: dict, cli, load_obj, card: str) -> tuple:
         if not prompt_ok:
             failures.append("the completion's stream does not start with its prompt")
         exact_only = {k: v for k, v in exact_counts.items()
-                      if k not in ("k1", "graph_captures", "graph_replays") and v}
+                      if k not in ("k1", "aln", "graph_captures", "graph_replays") and v}
         fast_only = {k: v for k, v in fast_counts.items()
-                     if k not in ("k4", "k4_quant_window", "graph_captures", "graph_replays")
-                     and v}
+                     if k not in ("k4", "k4_quant_window", "aln", "graph_captures",
+                                  "graph_replays") and v}
         if (exact_counts["k1"] != 2 * L * exact_counts["graph_captures"]
-                or not exact_counts["graph_replays"] or exact_only):
+                or not exact_counts["graph_replays"] or exact_only
+                or not _add_ln_follows(exact_counts, "k1")):
             failures.append(f"exact engine counts {exact_counts}")
         if (not fast_counts["k4_quant_window"] or fast_counts["k4"] != fast_counts[
-                "k4_quant_window"] or not fast_counts["graph_replays"] or fast_only):
+                "k4_quant_window"] or not fast_counts["graph_replays"] or fast_only
+                or not _add_ln_follows(fast_counts, "k4")):
             failures.append(f"fast engine counts {fast_counts}")
 
         # the coalesced batches again, through the pipeline (the same program), and
@@ -2152,7 +2261,10 @@ def serving_phase(torch, wrappers: dict, cli, load_obj, card: str) -> tuple:
                                       max_faces=SERVING_FACES, argv=argv))
     serving_launches = {"k1": exact_counts["k1"], "k4_int8": fast_counts["k4_quant_window"],
                         "k1_replayed": L * exact_counts["graph_replays"],
-                        "k4_int8_replayed": L * fast_counts["graph_replays"]}
+                        "k4_int8_replayed": L * fast_counts["graph_replays"],
+                        "aln": exact_counts["aln"] + fast_counts["aln"],
+                        "aln_replayed": 2 * L * (exact_counts["graph_replays"]
+                                                 + fast_counts["graph_replays"])}
     return runs, serving_launches
 
 
@@ -2221,7 +2333,8 @@ def train_phase(torch, wrappers: dict, card: str) -> dict:
        agreement, plain tokens, plain-greedy and lookahead-8 seconds. The
        counts are set to 0 just before and read just after: K1 and the
        bf16 tensor-core K4 must have launched (at the graphs' warm-ups and
-       captures), and no other kernel; plain greedy's graphs (K1) and
+       captures), the residual add and post-LN twice as often as both
+       together, and no other kernel; plain greedy's graphs (K1) and
        lookahead's (K4) must both have replayed, their replays counted
        apart around each call.
 
@@ -2390,7 +2503,8 @@ def train_phase(torch, wrappers: dict, card: str) -> dict:
         counts = _serving_counts(wrappers)
     L = cfg.opt.num_layers
     others = {k: n for k, n in counts.items()
-              if k not in ("k1", "k4", "k4_window", "graph_captures", "graph_replays") and n}
+              if k not in ("k1", "k4", "k4_window", "aln", "graph_captures", "graph_replays")
+              and n}
     if not (counts["k1"] and counts["k4_window"] and replays["k1"] and replays["k4_window"]):
         failures.append(f"the decode did not launch K1 and the bf16 K4 and replay both: "
                         f"{counts}, replays {replays}")
@@ -2398,14 +2512,18 @@ def train_phase(torch, wrappers: dict, card: str) -> dict:
         failures.append(f"of {counts['graph_replays']} replays the decodes made {replays}")
     if others or counts["k4"] != counts["k4_window"]:
         failures.append(f"the decode launched other kernels: {others}, k4 {counts['k4']}")
+    if not _add_ln_follows(counts, "k1", "k4"):
+        failures.append(f"the residual add and post-LN launched {counts['aln']} times, for "
+                        f"{counts['k1']} K1 and {counts['k4']} K4 launches")
     emit("train", part="decode", card=card, window=8, bucket=512, stats=stats,
          plain_greedy_s=t_plain, lookahead_8_s=t_look, launches=counts,
          graph_replays_plain=replays["k1"], graph_replays_lookahead=replays["k4_window"])
     if failures:
         raise AssertionError(f"train: {failures}")
-    # each replay is one decode step or window forward: one launch a layer
+    # each replay is one decode step or window forward: one launch a layer (two of aln)
     return {"k1": counts["k1"], "k4_window": counts["k4_window"],
-            "k1_replayed": L * replays["k1"], "k4_window_replayed": L * replays["k4_window"]}
+            "k1_replayed": L * replays["k1"], "k4_window_replayed": L * replays["k4_window"],
+            "aln": counts["aln"], "aln_replayed": 2 * L * sum(replays.values())}
 
 
 CHECKPOINT_FACES = 100    # the depth cut of the checkpoint and warm-start runs: 901 steps
@@ -2564,7 +2682,8 @@ def warm_start_phase(torch, wrappers: dict, load_obj, card: str) -> None:
     same tokens; a sampled request twice with one seed on one runner (the
     second captures nothing) gives a fresh runner's tokens; a ``--fast``
     ServingEngine's second request captures nothing. The counts are set to
-    0 before and read after: K1 and the int8 K4, and no other kernel."""
+    0 before and read after: K1 and the int8 K4, the residual add and
+    post-LN twice as often, and no other kernel."""
     import numpy as np
 
     from meshanything_tpu_torch import serving
@@ -2650,9 +2769,10 @@ def warm_start_phase(torch, wrappers: dict, load_obj, card: str) -> None:
                             f"{[s['graph_captures'] for s in sampled]}")
         for counts in (exact_counts, sampled_counts):
             other = {k: v for k, v in counts.items()
-                     if k not in ("k1", "graph_captures", "graph_replays") and v}
+                     if k not in ("k1", "aln", "graph_captures", "graph_replays") and v}
             if (not counts["k1"] or other or (counts["graph_captures"] and counts["k1"] != 2 * L
-                                              * counts["graph_captures"])):
+                                              * counts["graph_captures"])
+                    or not _add_ln_follows(counts, "k1")):
                 failures.append(f"greedy and sampled counts {exact_counts}, {sampled_counts}")
 
         _zero_counts(wrappers)
@@ -2672,10 +2792,10 @@ def warm_start_phase(torch, wrappers: dict, load_obj, card: str) -> None:
         if [s["graph_captures"] for s in served] != [1, 0] or served[1]["capture_s"] != 0:
             failures.append(f"the --fast engine's second request captured: {served}")
         fast_other = {k: v for k, v in fast_counts.items()
-                      if k not in ("k4", "k4_quant_window", "graph_captures", "graph_replays")
-                      and v}
+                      if k not in ("k4", "k4_quant_window", "aln", "graph_captures",
+                                   "graph_replays") and v}
         if (not fast_counts["k4_quant_window"] or fast_counts["k4"] != fast_counts[
-                "k4_quant_window"] or fast_other):
+                "k4_quant_window"] or fast_other or not _add_ln_follows(fast_counts, "k4")):
             failures.append(f"fast counts {fast_counts}")
         del runner, pre_runner, seeded, engine, model
         torch.cuda.empty_cache()
@@ -2956,7 +3076,7 @@ def _check_dp(torch, pp, ref: dict, dp: list, backend: str, failures: list) -> d
     counts = _sum_counts(dp)
     emit("parallel_dp_launches", backend=backend, launches=counts,
          rank_task_s=[r["task_s"] for r in dp])
-    for key in ("k1", "k2", "k3", "k4_quant_window", "k5"):
+    for key in ("k1", "k2", "k3", "k4_quant_window", "k5", "aln"):
         if counts[key] == 0:
             failures.append((backend, "dp launched no", key))
     return counts
@@ -3013,7 +3133,8 @@ def _check_tp(torch, pp, ref: dict, tp: list, backend: str, graph: bool, failure
     counts = _sum_counts(tp)
     emit("parallel_tp_launches", backend=backend, launches=counts,
          rank_task_s=[r["task_s"] for r in tp])
-    for key in ("k1", "k4_window") + (("graph_captures", "graph_replays") if graph else ()):
+    for key in ("k1", "k4_window", "aln") + (("graph_captures", "graph_replays") if graph
+                                             else ()):
         if counts[key] == 0:
             failures.append((backend, "tp launched no", key))
     return counts
@@ -3084,7 +3205,9 @@ def _check_tiers(torch, pp, ref: dict, ranks: list, backend: str, graph: bool, f
             checks = {"logits": err <= TP_LOGIT_RTOL * scale
                       and bool(torch.isfinite(rec["first_logits"]).all()),
                       "agreement": agreement >= TP_AGREEMENT_MIN,
-                      "launched": rec["counts"][TIER_KERNELS[tier]] > 0}
+                      "launched": rec["counts"][TIER_KERNELS[tier]] > 0,
+                      # the residual add and post-LN kernel in every tier but K5's
+                      "add_ln": (rec["counts"]["aln"] > 0) != (kw.get("attn") == "megakernel")}
             if kw.get("attn") == "megakernel":
                 checks["tokens_bit_equal"] = bool(torch.equal(d["tokens"],
                                                               alone["decode"]["tokens"]))
@@ -3230,8 +3353,10 @@ def parallel_phase(torch, da, cli, load_obj, card: str) -> tuple:
        inputs, 20 faces: the union of the OBJs complete and byte-equal to
        this process's CLI run, rank 1's records in ``.1``.
 
-    The NCCL passes are phase ``parallel_nccl``. A failing rank fails the
-    phase. Returns (the ranks' launches for the ``kernels`` line, the
+    dp and tp must launch the residual add and post-LN kernel, and each
+    tier of tiers must launch it unless it is the megakernel's, which must
+    not. The NCCL passes are phase ``parallel_nccl``. A failing rank fails
+    the phase. Returns (the ranks' launches for the ``kernels`` line, the
     largest errors of part 1)."""
     import numpy as np
 
@@ -3702,7 +3827,7 @@ def diffusion_phase(torch, wrappers: dict, card: str) -> None:
         raise AssertionError(f"diffusion: {failures}")
 
 
-PHASES = ("k4_check", "k1_check", "k23_check", "graph_replay", "device_length", "k1_time",
+PHASES = ("add_ln", "k4_check", "k1_check", "k23_check", "graph_replay", "device_length", "k1_time",
           "fast_time", "k5_check", "k5_replay", "k5_time", "probe_check", "probe_time",
           "measurement_path", "main_path", "graph_loop", "agreement", "floor", "serving",
           "train", "checkpoint", "warm_start", "parallel", "parallel_nccl", "recon", "diffusion")
@@ -3739,6 +3864,7 @@ def main(argv=None) -> int:
     from meshanything_tpu_torch import cli
     from meshanything_tpu_torch.geometry import load_obj
     from meshanything_tpu_torch.ops import _build
+    from meshanything_tpu_torch.ops import add_layer_norm as aln
     from meshanything_tpu_torch.ops import decode_attention as da
     from meshanything_tpu_torch.ops import k1_probe as kp
     from meshanything_tpu_torch.ops import megakernel as mk
@@ -3776,6 +3902,10 @@ def main(argv=None) -> int:
             emit("phase_seconds", name=name, seconds=now - clock[0])
             clock[0] = now
 
+    if "add_ln" in only:
+        worst["add_ln"] = check_add_ln(torch, aln)
+        times["add_ln"] = time_add_ln(torch, aln, card)
+    tick("add_ln")
     if "k4_check" in only:
         k4_worst = check_k4(torch, da)
         worst.update(k4=k4_worst["tile_split"], k4_window=k4_worst["window"],
@@ -3824,7 +3954,8 @@ def main(argv=None) -> int:
     wrappers = {"k1": da.decode_attention, "k2": da.decode_attention_int8,
                 "k3": da.decode_attention_int4, "k4": da.decode_attention_mq,
                 "k5": mk.decode_step_megakernel, "t1": pr.stream, "t2": pr.stream_rot,
-                "t3": pr.dual_stream, "t4": kp.k1_probe, "t5": pr.scale_shift}
+                "t3": pr.dual_stream, "t4": kp.k1_probe, "t5": pr.scale_shift,
+                "aln": aln.add_layer_norm}
     if "measurement_path" in only:
         probe_launches = drive_measurement_path(torch, wrappers)
     tick("measurement_path")
@@ -3935,7 +4066,8 @@ def drive_main_path(torch, wrappers: dict, cli, load_obj, paired: bool = False) 
 def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dict, worst: dict,
                  roof_gbs: float, serving_launches: dict, train_launches: dict,
                  parallel_launches: dict, parallel_worst: dict) -> dict:
-    """The ``kernels`` line: K1-K5 and T1-T5, each with its launches on the
+    """The ``kernels`` line: K1-K5, the residual add and post-LN
+    (``add_layer_norm``) and T1-T5, each with its launches on the
     main path, the serving path and the train phase's decode (``launches``;
     the serving path's and the train phase's also apart:
     ``launches_serving``, ``launches_train``), its largest error, its time, its plain
@@ -4026,6 +4158,23 @@ def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dic
     for entry, key in ((kernels[0], "k1"), (kernels[1], "k2"), (kernels[2], "k3"),
                        (kernels[3], "k4_window_quant"), (kernels[4], "k4_window")):
         entry["max_abs_err_local_heads"] = parallel_worst[key]
+    t = times["add_ln"]
+    # the main path's, the serving path's, the train phase's decode and the parallel ranks'
+    # launches, as K1's are counted (not phase add_ln's own checks and sweeps)
+    aln = {"main": launches["aln"], "serving": serving_launches["aln"],
+           "train": train_launches["aln"], "parallel": parallel_launches["aln"]}
+    kernels.append({
+        "name": "add_layer_norm", "route": "cuda", "source": src + "add_layer_norm.cu",
+        "replaces": None, "launches": sum(aln.values()),
+        "replayed_launches": sum(r["replayed_launches_add_ln"] for r in runs),
+        "launches_serving": aln["serving"],
+        "replayed_launches_serving": serving_launches["aln_replayed"],
+        "launches_train": aln["train"], "replayed_launches_train": train_launches["aln_replayed"],
+        "launches_parallel": aln["parallel"], "max_abs_err": worst["add_ln"],
+        "ms": t[1]["ms"], "plain_ms": t[1]["plain_ms"], "bound_ms": t[1]["bound_ms"],
+        "bound_by": t[1]["bound_by"], "library_ms": t[1]["library_ms"],
+        "ms_b16": t[16]["ms"], "plain_ms_b16": t[16]["plain_ms"],
+        "bound_ms_b16": t[16]["bound_ms"], "library_ms_b16": t[16]["library_ms"]})
     kernels += probe_kernel_entries(probe_times, probe_launches, worst)
     data_sheet_gbs = HBM_BYTES_PER_S / 1e9
     for entry in kernels:

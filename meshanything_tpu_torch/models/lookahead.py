@@ -47,6 +47,7 @@ import torch
 from meshanything_tpu_torch.config import ShapeOPTConfig
 from meshanything_tpu_torch.models.layers import col_lin, lin
 from meshanything_tpu_torch.models.shape_opt import (
+    CAPTURE_COUNTERS,
     Cache,
     ShapeOPT,
     check_capture,
@@ -56,6 +57,7 @@ from meshanything_tpu_torch.models.shape_opt import (
     prefill_cache,
     resolve_attn,
 )
+from meshanything_tpu_torch.ops.add_layer_norm import add_layer_norm
 from meshanything_tpu_torch.ops.decode_attention import decode_attention_mq
 from meshanything_tpu_torch.ops.kvcache import QUANTIZED, quantize_rows_for
 from meshanything_tpu_torch.ops.sampling import sample_token, top_k_filter, top_p_filter
@@ -153,6 +155,7 @@ def _append_window(state: LookaheadState, rows: list, write_start: torch.Tensor)
         state.kv[:, :, bi, pos] = torch.stack(stacked)
 
 
+@torch.no_grad()
 def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
                  max_new_tokens: int, wq_layers: Optional[Sequence] = None,
                  sampling: bool = False, top_k: int = 50, top_p: float = 0.95,
@@ -160,7 +163,8 @@ def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
     """One W-token forward and its acceptance; updates the state's tensors
     in place and reads nothing back (a CUDA graph captures it). With no
     live row it changes nothing but cache rows at the frozen bases.
-    ``max_accept`` caps the tokens a row accepts in the forward."""
+    ``max_accept`` caps the tokens a row accepts in the forward. It runs
+    without grad, as ``step_body`` does."""
     lin_e = lin_dispatch(wq_layers is not None)
     b, w = state.window.shape
     dtype = p.cond_embed.dtype
@@ -185,7 +189,7 @@ def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
         o, appended = _window_attention(state, layer_idx, q.reshape(b, w, h, hd).contiguous(),
                                         k, v, base, layer.tp_group)
         rows.append(appended)
-        x = layer.after_attention(x, o.reshape(b, w, h * hd), mats, lin_e)
+        x = layer.after_attention(x, o.reshape(b, w, h * hd), mats, lin_e, add_layer_norm)
     _append_window(state, rows, write_start)
 
     logits = lin(x, p.lm_head).float()                                  # (B, W, V)
@@ -354,7 +358,8 @@ def lookahead_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *
                 if g is None:
                     check_capture(p)
                     g = decode_graph.StepGraph(forward, device, key=key,
-                                               generator=state.generator if sampling else None)
+                                               generator=state.generator if sampling else None,
+                                               counters=CAPTURE_COUNTERS)
                     g.window = state.window        # the window tensor the graph reads and writes
                     state.graphs[w] = g
                     warm = 1    # the warm-up before the capture was the first of these forwards

@@ -27,6 +27,10 @@ calls the attention kernel over exactly ``write_pos + 1`` rows:
       weights, f32 residual stream); embedding, lm_head and sampling stay
       as in the other tiers. It does not compose with ``wq``.
 
+Each layer's two residual adds and post-LNs (``OPTLayer.after_attention``)
+are one kernel each in the decode step (``ops.add_layer_norm``, which has
+no backward); the prefill and ``forward_full`` keep ``ln(x + y)``.
+
 wq=True runs the four per-layer matrices of the decode loop as int8 W8A8
 (``ops/wquant.py``); prefill, embeddings and lm_head stay in the
 activation dtype.
@@ -76,7 +80,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from meshanything_tpu_torch.config import ShapeOPTConfig
-from meshanything_tpu_torch.models.layers import attention, col_lin, lin, ln, row_lin
+from meshanything_tpu_torch.models.layers import attention, col_lin, lin, row_lin
+from meshanything_tpu_torch.ops.add_layer_norm import add_layer_norm, add_layer_norm_reference
 from meshanything_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_int4,
@@ -100,6 +105,9 @@ from meshanything_tpu_torch.parallel.mesh import gather_module
 from meshanything_tpu_torch.runtime import decode_graph, profiling
 
 ATTN_MODES = ("pallas", "pallas_int8", "pallas_int4", "megakernel")
+# the launch counts a decode graph's ``capture`` span records (decode_graph.StepGraph):
+# the residual add and post-LN kernel's, two a layer in a step or a window forward
+CAPTURE_COUNTERS = {"add_ln": lambda: add_layer_norm.launches}
 # a cache: one (2, L, B, S, H*D) tensor, or (values, scales) when quantized
 Cache = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -119,16 +127,19 @@ class OPTLayer(nn.Module):
         self.ln_ffn = nn.LayerNorm(d, eps=cfg.ln_eps, **f)
 
     def after_attention(self, x: torch.Tensor, o: torch.Tensor, mats=None,
-                        lin_e=lin) -> torch.Tensor:
+                        lin_e=lin, add_ln=add_layer_norm_reference) -> torch.Tensor:
         """Out projection, residual, post-LN, ReLU MLP, residual, post-LN
         (x is the layer input, o the merged attention heads). ``mats``
         holds the out/fc1/fc2 matrices (default: this layer's), applied
-        with ``lin_e`` (``ops.wquant.lin_dispatch``)."""
+        with ``lin_e`` (``ops.wquant.lin_dispatch``). ``add_ln(x, y, m)``
+        is each residual add and post-LN, ``ln(x + y, m)``: the decode
+        step passes the kernel (``ops.add_layer_norm``), which has no
+        backward."""
         mats = self if mats is None else mats
         g = self.tp_group
-        x = ln(x + row_lin(o.to(x.dtype), mats.out, g, lin_e), self.ln_attn)
-        return ln(x + row_lin(F.relu(col_lin(x, mats.fc1, g, lin_e)), mats.fc2, g, lin_e),
-                  self.ln_ffn)
+        x = add_ln(x, row_lin(o.to(x.dtype), mats.out, g, lin_e), self.ln_attn)
+        return add_ln(x, row_lin(F.relu(col_lin(x, mats.fc1, g, lin_e)), mats.fc2, g, lin_e),
+                      self.ln_ffn)
 
 
 class ShapeOPT(nn.Module):
@@ -448,6 +459,7 @@ def _step_attention(state: DecodeState, layer_idx: int, write_pos: torch.Tensor,
     return kernel(q, values, scales, layer_idx, cur_len)
 
 
+@torch.no_grad()
 def step_body(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
               wq_layers: Optional[Sequence] = None,
               mega_layers: Optional[MegakernelLayers] = None, sampling: bool = False,
@@ -457,7 +469,8 @@ def step_body(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
     on the device: updates the state's tensors in place (cache row, token
     slot, flags, step_t) and returns the step's f32 logits (B, vocab). It
     leaves the host's ``state.step`` alone and reads nothing back, so a
-    CUDA graph can capture it (``decode_segment``). With ``early_exit`` a
+    CUDA graph can capture it (``decode_segment``). It runs without grad
+    (``ops.add_layer_norm`` has no backward). With ``early_exit`` a
     step taken after every row has finished changes no state tensor
     (JAX's ``cond_fn`` never takes it); without, finished rows emit pad
     to the end, as JAX's loop with ``early_exit=False`` does.
@@ -491,7 +504,7 @@ def step_body(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
             q, k, v = col_lin(x, mats.qkv, layer.tp_group, lin_e).chunk(3, dim=-1)
             o = _step_attention(state, layer_idx, write_pos, cur_len,
                                 q.reshape(b, h, hd).contiguous(), k, v, layer.tp_group)
-            x = layer.after_attention(x, o.reshape(b, h * hd), mats, lin_e)
+            x = layer.after_attention(x, o.reshape(b, h * hd), mats, lin_e, add_layer_norm)
     logits = lin(x, p.lm_head).float()   # keeps the activation dtype's rounding
 
     next_token = sample_token(logits, sampling=sampling, top_k=top_k, top_p=top_p,
@@ -565,7 +578,8 @@ def decode_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
                 check_capture(p)
                 state.graph = decode_graph.StepGraph(
                     lambda: step_body(p, cfg, state, **step_kw), device,
-                    generator=state.generator if sampling else None, key=key)
+                    generator=state.generator if sampling else None, key=key,
+                    counters=CAPTURE_COUNTERS)
                 ran, n = 1, n - 1   # the warm-up before the capture was this segment's first step
                 sp.set(captured=1)
             elif state.graph.key != key:

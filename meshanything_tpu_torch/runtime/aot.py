@@ -34,7 +34,8 @@ def libraries_for(attn: str, lookahead: "int | str", dtype: torch.dtype,
     """The kernel libraries (``csrc/<name>.cu``) that a decode of the
     tier launches: K1 (exact), K2/K3 (int8/int4 caches), K4 (any window:
     the tensor-core file or the f32 one, as ``mq_kernel_for`` routes the
-    cache and query dtypes) or K5 (``attn="megakernel"``)."""
+    cache and query dtypes) or K5 (``attn="megakernel"``), and, beside
+    each but K5, the residual add and post-LN (``add_layer_norm``)."""
     from meshanything_tpu_torch.ops.decode_attention import mq_kernel_for
 
     if attn == "megakernel":
@@ -42,8 +43,10 @@ def libraries_for(attn: str, lookahead: "int | str", dtype: torch.dtype,
     if lookahead:
         cache = {"pallas_int8": torch.int8, "pallas_int4": torch.int32}.get(attn, dtype)
         route = mq_kernel_for(cache, head_dim, dtype)
-        return ("decode_attention_window" if route != "tile_split" else "decode_attention_fast",)
-    return ("decode_attention" if attn == "pallas" else "decode_attention_quant",)
+        attention = "decode_attention_window" if route != "tile_split" else "decode_attention_fast"
+    else:
+        attention = "decode_attention" if attn == "pallas" else "decode_attention_quant"
+    return (attention, "add_layer_norm")
 
 
 def build(names: Sequence[str]) -> list:

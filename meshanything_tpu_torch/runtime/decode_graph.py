@@ -27,7 +27,9 @@ request's prefill is written into the kept state's tensors
 replays it. ``pool_bytes`` is what a capture's private memory pool took
 from the card (the budget counts it while the state is kept). Each capture
 is a ``capture`` span (``runtime/profiling.py``), whose host time is
-``capture_s``; no span records a CUDA event while a capture is underway.
+``capture_s``, with the launch counts that the caller names
+(``counters``: the decode loops name the residual add and post-LN kernel's,
+``add_ln``); no span records a CUDA event while a capture is underway.
 
 Sampling draws from a ``torch.Generator`` that the graph registers
 (``CUDAGraph.register_generator_state``): the request's own, or, for a
@@ -42,7 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Callable, Optional
+from typing import Callable, Mapping, Optional
 
 import torch
 
@@ -81,6 +83,10 @@ class StepGraph:
     what the call was captured with; a caller that would replay it with
     other settings compares it and captures anew or raises.
 
+    ``counters`` maps an attribute of the ``capture`` span to a callable
+    that reads a process-wide launch count: the span gets how far each
+    count rose while ``fn`` was captured.
+
     ``captures`` and ``replays`` count over the process, as the kernel
     wrappers count their launches: a run sets them to 0 before and reads
     them after."""
@@ -89,7 +95,8 @@ class StepGraph:
     replays = 0
 
     def __init__(self, fn: Callable[[], object], device: torch.device, *,
-                 generator: Optional[torch.Generator] = None, key=None):
+                 generator: Optional[torch.Generator] = None, key=None,
+                 counters: Optional[Mapping[str, Callable[[], int]]] = None):
         with profiling.span("capture") as sp:      # the warm-up step's time included
             stream = capture_stream(device)
             current = torch.cuda.current_stream(device)
@@ -101,11 +108,14 @@ class StepGraph:
             if generator is not None:
                 self.graph.register_generator_state(generator)
             reserved = torch.cuda.memory_reserved(device)
+            counters = counters or {}
+            before = {name: read() for name, read in counters.items()}
             with profiling.RECORDER.capturing(), torch.cuda.graph(self.graph, stream=stream):
                 fn()
             torch.cuda.synchronize(device)
             self.pool_bytes = max(torch.cuda.memory_reserved(device) - reserved, 0)
-            sp.set(pool_bytes=self.pool_bytes)
+            sp.set(pool_bytes=self.pool_bytes,
+                   **{name: read() - before[name] for name, read in counters.items()})
         self.capture_s = sp.seconds
         self.key = key
         self.replayed = 0

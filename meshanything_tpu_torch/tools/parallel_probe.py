@@ -81,13 +81,15 @@ CLOCKED_STEPS = 20
 
 
 def wrappers() -> dict:
-    """The kernels' wrappers, each counting its launches."""
+    """The kernels' wrappers, each counting its launches (``aln``: the
+    residual add and post-LN)."""
+    from meshanything_tpu_torch.ops import add_layer_norm as aln
     from meshanything_tpu_torch.ops import decode_attention as da
     from meshanything_tpu_torch.ops import megakernel as mk
 
     return {"k1": da.decode_attention, "k2": da.decode_attention_int8,
             "k3": da.decode_attention_int4, "k4": da.decode_attention_mq,
-            "k5": mk.decode_step_megakernel}
+            "k5": mk.decode_step_megakernel, "aln": aln.add_layer_norm}
 
 
 def zero_counts() -> None:

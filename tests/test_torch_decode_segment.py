@@ -322,7 +322,7 @@ class _StandInGraph:
     captures = 0
     replays = 0
 
-    def __init__(self, fn, device, *, generator=None, key=None):
+    def __init__(self, fn, device, *, generator=None, key=None, counters=None):
         fn()
         self.fn, self.key, self.capture_s, self.replayed = fn, key, 0.0, 0
         _StandInGraph.captures += 1

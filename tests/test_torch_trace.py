@@ -295,7 +295,7 @@ class _StandInGraph:
     """Runs the step where a CUDA graph would replay it: the warm-up call,
     then one call a replay."""
 
-    def __init__(self, fn, device, *, generator=None, key=None):
+    def __init__(self, fn, device, *, generator=None, key=None, counters=None):
         fn()
         self.fn, self.key, self.capture_s, self.replayed = fn, key, 0.0, 0
 
