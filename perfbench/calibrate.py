@@ -38,7 +38,8 @@ def readings(workload: str, seed: int, tier=None, log=sys.stderr) -> dict:
         rows = s.sample(s.run.done())
         s.free()
         profiles: list = []
-        numbers = check.compare(s.reference_params(), s.run.model, rows, s.dev, profiles)
+        numbers = check.compare(s.reference_params(), s.run.model, s.run.decoder, rows, s.dev,
+                                profiles)
         correct, _ = check.verdict(numbers, check.limits_of(s.run.config), 0)
         return {"numbers": numbers, "correct": correct, "profiles": profiles,
                 "decode_steps": rec["decode_steps"], "request_s": seconds}

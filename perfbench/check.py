@@ -3,7 +3,8 @@ against the plain reference (``perfbench/reference``), which reads the
 program's outputs only to judge them.
 
 For each sampled mesh the reference encodes the mesh's points itself,
-runs the decoder teacher-forced over the program's served tokens, and
+runs the decoder teacher-forced over the program's served tokens (the
+configuration's decoder family, ``decoders/<decoder>.py``), and
 detokenizes those tokens from its own point features. Four numbers:
 
   decode_gap     the widest gap, over every served position up to the
@@ -16,10 +17,11 @@ detokenizes those tokens from its own point features. Four numbers:
                  below its best bin, over every coordinate of every face
                  (infinite where the program's faces are not the faces the
                  tokens make).
-  cache_err      the KV cache that the timed path wrote, read back after
-                 the window (one row of the window's last request): the
-                 share of the first decoder layer's K and V entries at the
-                 decode positions that lie further from the reference's
+  cache_err      the cache that the timed path wrote, read back after the
+                 window (one row of the window's last request, by the
+                 family's ``read_cache``): the share of the first decoder
+                 layer's cached entries at the decode positions (the OPT
+                 family's K and V) that lie further from the reference's
                  than CACHE_TOL of their row's root mean square. The first
                  layer's rows come from the token embedding alone, so the
                  program's own rounding stays well inside the tolerance,
@@ -87,8 +89,8 @@ def _no_tf32():
 
 
 def dequantize(cache: dict) -> torch.Tensor:
-    """The program's cache rows as float32: (2, L, n, hidden) values,
-    times their (2, L, n) row scales where the cache is quantized."""
+    """The program's cache rows as float32: (..., n, width) values, times
+    their (..., n) row scales where the cache is quantized."""
     rows = cache["values"].float()
     if cache["scales"] is not None:
         rows = rows * cache["scales"][..., None].float()
@@ -99,42 +101,53 @@ CACHE_TOL = 0.01
 
 
 class _CacheProbe:
-    """The program's cache rows against the reference's K and V
-    (``decoder_logits``'s ``kv_probe``) at the decode positions [c, rows):
-    ``share``, the first layer's share of entries off by more than
-    CACHE_TOL of their row's RMS, and ``err``, each layer's (K, V)
-    relative error in norm."""
+    """The program's cache rows against the reference's (the family's
+    ``decoder_logits``'s ``cache_probe``) at the decode positions [c,
+    rows): ``share``, the first layer's share of entries off by more than
+    CACHE_TOL of their row's RMS, and ``err``, each layer's relative error
+    in norm of each part (the OPT family's K and V).
 
-    def __init__(self, cache: dict, c: int, rows: int, device: torch.device):
+    ``cache`` is the family's ``read_cache``: a list of groups, each
+    {"values": (parts, L, n, width), "scales": (parts, L, n) or None}.
+    The reference hands each layer's rows in the same groups: a tuple of
+    (C + T - 1, width) tensors a group, one a part."""
+
+    def __init__(self, cache: list, c: int, rows: int, device: torch.device):
         self.cache, self.c, self.rows, self.device = cache, c, rows, device
         self.err: list = []
         self.share = math.inf
 
-    def __call__(self, layer: int, k: torch.Tensor, v: torch.Tensor) -> None:
+    def __call__(self, layer: int, groups: list) -> None:
         span = slice(self.c, self.rows)
-        got = dequantize({"values": self.cache["values"][:, layer, span],
-                          "scales": None if self.cache["scales"] is None
-                          else self.cache["scales"][:, layer, span]}).to(self.device)
-        want = torch.stack([k[span], v[span]])
-        off = got - want
-        self.err.append(tuple(float(off[p].norm() / want[p].norm()) for p in range(2)))
+        err, off_entries = [], []
+        for stored, parts in zip(self.cache, groups, strict=True):
+            got = dequantize({"values": stored["values"][:, layer, span],
+                              "scales": None if stored["scales"] is None
+                              else stored["scales"][:, layer, span]}).to(self.device)
+            want = torch.stack([part[span] for part in parts])
+            off = got - want
+            err += [float(off[p].norm() / want[p].norm()) for p in range(len(parts))]
+            if layer == 0:
+                rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+                off_entries.append((off.abs() > CACHE_TOL * rms).flatten())
+        self.err.append(tuple(err))
         if layer == 0:
-            rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
-            self.share = float((off.abs() > CACHE_TOL * rms).float().mean())
+            self.share = float(torch.cat(off_entries).float().mean())
 
 
 @torch.no_grad()
-def compare(W: dict, model: dict, samples: List[dict], device: torch.device,
+def compare(W: dict, model: dict, decoder, samples: List[dict], device: torch.device,
             profiles: Optional[list] = None) -> Dict[str, float]:
     """The four numbers over ``samples``, each {"points": (N, 6) float32,
     "tokens": (T,) int64, "coords": (faces, 3, 3) float32, "obj": path},
-    the first also "cache" (``harness.cache_rows``: its row of the
-    program's cache); ``profiles`` receives each sample's ``profile`` of
-    tokens and bins, and the first's cache errors by layer."""
+    the first also "cache" (the decoder family's ``read_cache``: its row
+    of the program's cache); ``profiles`` receives each sample's
+    ``profile`` of tokens and bins, and the first's cache errors by
+    layer."""
     _no_tf32()
-    eos = model["opt"]["eos_token_id"]
+    iface = decoder.interface(model)
+    eos, c = iface["eos"], iface["cond_length"]
     bins = model["nrd"]["discrete_num"]
-    c = model["opt"]["cond_length"]
     out = {"decode_gap": 0.0, "detok_gap": 0.0, "cache_err": math.inf, "obj_faces_off": 0}
     for s in samples:
         toks = s["tokens"].to(device)
@@ -143,7 +156,7 @@ def compare(W: dict, model: dict, samples: List[dict], device: torch.device,
         probe = None
         if s.get("cache") is not None:
             probe = _CacheProbe(s["cache"], c, c + end - 1, device)
-        logits = ref.decoder_logits(W, model, cond, toks, probe)
+        logits = decoder.decoder_logits(W, model, cond, toks, probe)
         out["decode_gap"] = max(out["decode_gap"], float(_gap(logits[:end], toks[:end]).max()))
         if probe is not None:
             out["cache_err"] = probe.share
@@ -152,7 +165,7 @@ def compare(W: dict, model: dict, samples: List[dict], device: torch.device,
             if probe is not None:
                 profiles[-1]["cache"] = probe.err
         del logits
-        dl, mask = ref.detok_logits(W, model, pf, toks)
+        dl, mask = ref.detok_logits(W, model, pf, toks, iface["codebook"])
         chosen, pmask = _bins(s["coords"], bins)
         if not torch.equal(pmask.to(device), mask):
             out["detok_gap"] = math.inf

@@ -3,8 +3,9 @@ the comparison, and the result line.
 
 Everything a cell is made of is found by name: the cell in
 ``BENCHMARK.json``'s ``workloads``, its configuration in
-``perfbench/configs/<config>.json``, its traffic in
-``perfbench/traffic/<cell>.json``, and each metric in
+``perfbench/configs/<config>.json``, its decoder family (the
+configuration's ``decoder``) in ``perfbench/decoders/<decoder>.py``, its
+traffic in ``perfbench/traffic/<cell>.json``, and each metric in
 ``perfbench/metrics/<metric>.py`` (a ``read(run)`` that returns the number,
 or None where the run has nothing to read). The window drives the CLI's
 folder path as ``runtime/pipeline.py::InferencePipeline.run`` does: the
@@ -25,6 +26,7 @@ import tempfile
 import time
 import traceback
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, List, Optional
 
 PACKAGE = Path(__file__).resolve().parent
@@ -32,6 +34,10 @@ ROOT = PACKAGE.parent
 # the program's kernel libraries and any compiler cache: fixed paths inside the checkout
 CACHE = ROOT / "_perfbench_cache"
 FORBIDDEN = ("jax", "jaxlib", "flax", "meshanything_tpu")
+DECODERS = PACKAGE / "decoders"
+# what every decoder family module gives (README.md, "Adding a decoder family")
+FAMILY = ("program", "interface", "param_spec", "decoder_logits", "read_cache", "decode_work",
+          "slice_work")
 
 
 def _load_json(path: Path) -> dict:
@@ -76,6 +82,20 @@ def load_reader(name: str) -> Callable:
     return module.read
 
 
+def load_decoder(name: str) -> ModuleType:
+    """The decoder family ``name``: ``DECODERS/<name>.py``, loaded by path."""
+    path = DECODERS / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"no decoder family {name!r}: {path} is not a file")
+    spec = importlib.util.spec_from_file_location(f"perfbench_decoder_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    missing = [f for f in FAMILY if not callable(getattr(module, f, None))]
+    if missing:
+        raise ValueError(f"decoder family {name!r} ({path}) lacks {missing}")
+    return module
+
+
 def forbidden_modules() -> list:
     return sorted({k.split(".")[0] for k in sys.modules} & set(FORBIDDEN))
 
@@ -109,6 +129,7 @@ class Run:
     model: dict                  # its model sizes, as run
     traffic: dict
     batch: int
+    decoder: Optional[ModuleType] = None     # the configuration's decoder family
     setup_s: float = 0.0
     window_s: float = 0.0
     meshes: int = 0
@@ -124,15 +145,6 @@ class Run:
         return self.config["kernels"][group]
 
 
-def _model_config(model: dict):
-    from meshanything_tpu_torch import config as pc
-
-    top = {k: v for k, v in model.items() if k not in ("perceiver", "opt", "nrd")}
-    return pc.MeshAnythingConfig(perceiver=pc.PerceiverConfig(**model["perceiver"]),
-                                 opt=pc.ShapeOPTConfig(**model["opt"]),
-                                 nrd=pc.NRDConfig(**model["nrd"]), **top)
-
-
 def _card_line() -> str:
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -145,7 +157,9 @@ def _card_line() -> str:
 
 def _kept_state(runner):
     """The decode state in flight or last run: the runner keeps one state
-    per batch size, the cell's."""
+    per batch size, the cell's. ``PhaseRunner`` has no public accessor for
+    it yet (PERF.md, Open questions), so this one function reads its
+    private ``_kept``, for every decoder family."""
     return next(reversed(runner._kept.values())).state
 
 
@@ -155,24 +169,6 @@ def _positions(runner) -> Callable[[], list]:
         state = _kept_state(runner)
         return [int(state.step_t)] * state.tokens.shape[0]
     return read
-
-
-def cache_rows(runner, row: int, n: int) -> dict:
-    """Positions [0, n) of batch row ``row`` of the runner's KV cache, as
-    stored, copied to the host a layer at a time: {"values": (2, L, n,
-    hidden), "scales": (2, L, n) float32 for a quantized cache, else
-    None}."""
-    import torch
-
-    kv = _kept_state(runner).kv
-    values, scales = (kv, None) if isinstance(kv, torch.Tensor) else kv
-    if values.dtype not in (torch.bfloat16, torch.float32, torch.int8):
-        raise ValueError(f"a cache of {values.dtype} is not read back here")
-    out = values.new_empty((2, values.shape[1], n, values.shape[-1]), device="cpu")
-    for layer in range(values.shape[1]):
-        out[:, layer] = values[:, layer, row, :n].cpu()
-    return {"values": out,
-            "scales": None if scales is None else scales[:, :, row, 0, :n].cpu()}
 
 
 class Session:
@@ -185,12 +181,12 @@ class Session:
     ``tier`` (runner options over the configuration's) runs a control."""
 
     def __init__(self, workload: str, seed: int, *, device: Optional[str] = None,
-                 model: Optional[dict] = None, tier: Optional[dict] = None, log=sys.stderr):
+                 model: Optional[dict] = None, tier: Optional[dict] = None,
+                 log=sys.stderr):
         import torch
 
         from meshanything_tpu_torch.geometry.postprocess import postprocess_faces
         from meshanything_tpu_torch.models import meshanything as ma
-        from meshanything_tpu_torch.models.meshanything import MeshAnything
         from meshanything_tpu_torch.runtime.phases import PhaseRunner
         from perfbench import traffic as traffic_mod, weights
         from perfbench.reference import model as ref
@@ -202,20 +198,22 @@ class Session:
         model = model or config["model"]
         tier = {**config["tier"], **(tier or {})}
         self.dev = dev = torch.device(device or "cuda")
-        self.run = Run(cell, config, model, traffic, int(traffic["batch"]))
-        self.cfg = cfg = _model_config(model)
-        self.dtype = cfg.activation_dtype
+        family = load_decoder(config["decoder"])
+        self.iface = iface = family.interface(model)
+        self.run = Run(cell, config, model, traffic, int(traffic["batch"]), family)
         self.postprocess_faces = postprocess_faces
         torch.set_grad_enabled(False)
 
         clock = time.perf_counter()
-        self.spec = ref.param_spec(model)
-        self.net = MeshAnything(cfg, device="meta", dtype=self.dtype).to_empty(device=dev)
+        self.spec = ref.param_spec(model, family)
+        cfg, self.net = family.program(model, dev)
+        self.cfg, self.dtype = cfg, cfg.activation_dtype
         state = self.net.state_dict()
         if set(state) != {s[0] for s in self.spec}:
             raise ValueError(f"the program's parameters differ from the specification: "
                              f"{sorted(set(state) ^ {s[0] for s in self.spec})[:8]}")
-        weights.fill(self.spec, state.__getitem__, seed, dev, self.dtype, cfg.opt.eos_token_id)
+        weights.fill(self.spec, state.__getitem__, seed, dev, self.dtype,
+                     (iface["eos_row"], iface["eos"]))
         del state
         clock = self._lap("weights", clock)
         store = use_cache_dirs() if dev.type == "cuda" else None
@@ -229,7 +227,7 @@ class Session:
         self.out_dir = Path(self.workdir.name)
         warm = self.points(1 << 40)
         gen = torch.Generator(device=dev).manual_seed(seed % (1 << 63))
-        fake = torch.randint(3, cfg.opt.vocab_size, (self.run.batch, cfg.generate_length),
+        fake = torch.randint(3, iface["vocab_size"], (self.run.batch, cfg.generate_length),
                              generator=gen, device=dev)
         pf, _ = ma.encode(self.net, cfg, torch.from_numpy(warm).to(dev))
         coords = ma.detokenize(self.net, cfg, fake, pf).float().cpu().numpy()
@@ -294,8 +292,8 @@ class Session:
     def sample(self, done: List[dict]) -> List[dict]:
         """The comparison's sample of the window's finished meshes
         (``traffic.check_sample``), the first, a row of the last request,
-        with its row of the program's KV cache read back: call it before
-        the cache is written again."""
+        with its row of the program's cache read back (the family's
+        ``read_cache``): call it before the cache is written again."""
         from perfbench import check, traffic as traffic_mod
 
         pairs = traffic_mod.check_sample(self.run.traffic, self.seed,
@@ -303,8 +301,9 @@ class Session:
         rows = check.sample_rows(done, pairs)
         last = self.run.requests[-1]
         if pairs and done[pairs[0][0]] is last:
-            written = self.cfg.opt.cond_length + last["tokens"].shape[1] - 1
-            rows[0]["cache"] = cache_rows(self.runner, pairs[0][1], written)
+            written = self.iface["cond_length"] + last["tokens"].shape[1] - 1
+            rows[0]["cache"] = self.run.decoder.read_cache(_kept_state(self.runner),
+                                                           pairs[0][1], written)
         return rows
 
     def free(self) -> None:
@@ -318,7 +317,7 @@ class Session:
         from perfbench import weights
 
         return weights.reference_params(self.spec, self.seed, self.dev, self.dtype,
-                                        self.cfg.opt.eos_token_id)
+                                        (self.iface["eos_row"], self.iface["eos"]))
 
     def close(self) -> None:
         self.workdir.cleanup()
@@ -383,7 +382,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     try:
         if sample_error:
             raise RuntimeError("reading the sample back failed:\n" + sample_error)
-        numbers = check.compare(s.reference_params(), run.model, samples, dev)
+        numbers = check.compare(s.reference_params(), run.model, run.decoder, samples, dev)
     except Exception:
         s.say("[perfbench] the comparison failed:\n" + traceback.format_exc())
     correct, table = check.verdict(numbers, check.limits_of(run.config), run.failed)

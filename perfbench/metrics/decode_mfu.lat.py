@@ -1,5 +1,6 @@
 """The whole decode's share of the chip's peak, in percent: its least time
-on the published peaks (``counts.decode_work``) over the fenced ``decode_s``."""
+on the published peaks (the decoder family's ``decode_work``, through
+``counts.decode_mfu``) over the fenced ``decode_s``."""
 from perfbench import counts
 
 

@@ -1,6 +1,6 @@
 """The dense-matrix kernels' share of their roofline, in percent, over the
-traced slices: the layer matrices, ``input_layer`` and ``lm_head`` a step
-(``counts.gemm_work``) on the published peaks, over the
+traced slices: the decoder's matrices a step (the ``"gemm"`` part of the decoder
+family's ``slice_work``) on the published peaks, over the
 summed device time of the kernels the configuration names as GEMMs."""
 from perfbench import counts, devtrace
 

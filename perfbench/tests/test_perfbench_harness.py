@@ -55,8 +55,9 @@ def test_each_cell_finds_its_files_by_name(cell):
     traffic.check_traffic(mix)
     # the configuration as run is the published model, width for width
     assert config["model"] == dataclasses.asdict(MeshAnythingConfig())
-    spec = ref.param_spec(config["model"])
-    net = MeshAnything(harness._model_config(config["model"]), device="meta")
+    family = harness.load_decoder(config["decoder"])
+    spec = ref.param_spec(config["model"], family)
+    _, net = family.program(config["model"], "meta")
     assert {n: tuple(t.shape) for n, t in net.state_dict().items()} == \
         {n: tuple(shape) for n, shape, _, _ in spec}
     e2e = harness.metrics_for(BENCH, found, False)
@@ -68,12 +69,14 @@ def test_each_cell_finds_its_files_by_name(cell):
 
 DRY = """
 import dataclasses, json, sys
+import torch
+torch.set_num_threads(1)
 sys.path.insert(0, {root!r})
 from meshanything_tpu_torch.config import small_test_config
 from perfbench import harness
 model = dataclasses.asdict(small_test_config(8))
 for trace in (1, 0):
-    result = harness.run_cell({cell!r}, 2 ** 31 + 11, 0.5, bool(trace), device="cpu", model=model)
+    result = harness.run_cell({cell!r}, 2 ** 31 + 11, 4.0, bool(trace), device="cpu", model=model)
     print(json.dumps({{"trace": trace, "result": result,
                        "forbidden": harness.forbidden_modules()}}))
 """
@@ -81,10 +84,15 @@ for trace in (1, 0):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_dry_run_prints_a_result_line(cell):
-    """A dry run on the CPU at ``small_test_config``: the result's keys,
-    the cell's metrics (less those read from a device trace, which needs
-    the card), the comparison last, and no module of JAX or the JAX
-    package loaded."""
+    """A dry run on the CPU at ``small_test_config``, on one thread in a 4 s
+    window, so that the metrics read across requests have two requests or
+    more: the result's keys, the cell's metrics (less those read from a
+    device trace, which needs the card), the comparison last, and no
+    module of JAX or the JAX package loaded. (A B=16 request takes about
+    0.2 s with a thread a core on an idle CPU, and 0.7-0.9 s on one thread
+    beside four more such runs; with a thread a core beside four more runs
+    it took some 250 times as long, as the runs' threads wait on each
+    other, and the window held one request.)"""
     out = subprocess.run([sys.executable, "-c", DRY.format(root=str(harness.ROOT), cell=cell)],
                          capture_output=True, text=True, timeout=600, cwd=str(harness.ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
@@ -152,6 +160,6 @@ def test_the_sample_takes_the_longest_and_both_halves():
 def test_small_config_parameters_follow_the_specification():
     cfg = small_test_config(8)
     net = MeshAnything(cfg, device="meta")
-    spec = ref.param_spec(dataclasses.asdict(cfg))
+    spec = ref.param_spec(dataclasses.asdict(cfg), harness.load_decoder("opt"))
     assert {n: tuple(t.shape) for n, t in net.state_dict().items()} == \
         {n: tuple(shape) for n, shape, _, _ in spec}

@@ -1,5 +1,7 @@
 """The plain reference against the port on the CPU, in float32 at a small
-size: the condition, the teacher-forced logits and the detokenizer agree,
+size, with the OPT decoder family (its logits against the port's OPT
+``forward_full``): the condition, the teacher-forced logits and the
+detokenizer agree,
 the served streams are the reference's greedy choices, the cache the
 program wrote is the reference's K and V, and the mesh clean-up reference
 reads the program's OBJs as equal."""
@@ -10,19 +12,22 @@ import torch
 from meshanything_tpu_torch.geometry.postprocess import postprocess_faces
 from meshanything_tpu_torch.models import meshanything as ma
 from meshanything_tpu_torch.models import shape_opt as opt_mod
-from meshanything_tpu_torch.models.meshanything import MeshAnything
 from meshanything_tpu_torch.runtime.phases import PhaseRunner
 from perfbench import check, harness, weights
 from perfbench.reference import mesh as ref_mesh
 from perfbench.reference import model as ref
 
 CPU = torch.device("cpu")
+OPT = harness.load_decoder("opt")
+
+
 def _setup(model, seed=5):
-    cfg = harness._model_config(model)
-    spec = ref.param_spec(model)
-    net = MeshAnything(cfg, dtype=torch.float32)
-    weights.fill(spec, net.state_dict().__getitem__, seed, CPU, torch.float32, cfg.opt.eos_token_id)
-    W = weights.reference_params(spec, seed, CPU, torch.float32, cfg.opt.eos_token_id)
+    cfg, net = OPT.program(model, CPU)
+    spec = ref.param_spec(model, OPT)
+    iface = OPT.interface(model)
+    weights.fill(spec, net.state_dict().__getitem__, seed, CPU, torch.float32,
+                 (iface["eos_row"], iface["eos"]))
+    W = weights.reference_params(spec, seed, CPU, torch.float32, (iface["eos_row"], iface["eos"]))
     g = torch.Generator().manual_seed(seed)
     pc = torch.randn(2, cfg.perceiver.num_points, 6, generator=g)
     pc[..., 3:] /= pc[..., 3:].norm(dim=-1, keepdim=True)
@@ -32,17 +37,18 @@ def _setup(model, seed=5):
 @torch.no_grad()
 def test_reference_equals_the_port_in_float32(moderate_model):
     cfg, net, W, pc = _setup(moderate_model)
+    iface = OPT.interface(moderate_model)
     pf_p, cond_p = ma.encode(net, cfg, pc)
-    toks = torch.randint(0, cfg.opt.vocab_size, (cfg.generate_length,),
+    toks = torch.randint(0, iface["vocab_size"], (cfg.generate_length,),
                          generator=torch.Generator().manual_seed(1))
     for b in range(2):
         pf, cond = ref.encode(W, moderate_model, pc[b])
         assert (pf - pf_p[b]).abs().max() < 1e-5 and (cond - cond_p[b]).abs().max() < 1e-5
         want = opt_mod.forward_full(net.opt, cfg.opt, cond_p[b:b + 1], toks[None, :-1])[0]
-        got = ref.decoder_logits(W, moderate_model, cond, toks)
+        got = OPT.decoder_logits(W, moderate_model, cond, toks)
         assert (got - want[cfg.cond_length - 1:]).abs().max() < 1e-4
     coords = ma.detokenize(net, cfg, toks[None], pf_p[:1])[0]
-    logits, mask = ref.detok_logits(W, moderate_model, pf_p[0], toks)
+    logits, mask = ref.detok_logits(W, moderate_model, pf_p[0], toks, iface["codebook"])
     bins, pmask = check._bins(coords.numpy(), cfg.nrd.discrete_num)
     assert torch.equal(mask, pmask) and torch.equal(logits.argmax(-1)[mask], bins[mask])
 
@@ -52,20 +58,21 @@ def test_served_streams_and_cache_are_the_references(moderate_model):
     """The served tokens and coordinates read a gap of 0 to rounding, and
     the KV cache read back from the runner the reference's K and V."""
     cfg, net, W, pc = _setup(moderate_model)
+    iface = OPT.interface(moderate_model)
     runner = PhaseRunner(net, cfg, early_exit=False, attn="pallas")
     out = runner.run(pc)
     for b in range(2):
         pf, cond = ref.encode(W, moderate_model, pc[b])
         toks = out["tokens"][b]
-        end = check._served_end(toks, cfg.opt.eos_token_id)
-        written = cfg.opt.cond_length + toks.shape[0] - 1
-        probe = check._CacheProbe(harness.cache_rows(runner, b, written), cfg.cond_length,
-                                  written, CPU)
-        logits = ref.decoder_logits(W, moderate_model, cond, toks, probe)[:end]
+        end = check._served_end(toks, iface["eos"])
+        written = iface["cond_length"] + toks.shape[0] - 1
+        probe = check._CacheProbe(OPT.read_cache(harness._kept_state(runner), b, written),
+                                  cfg.cond_length, written, CPU)
+        logits = OPT.decoder_logits(W, moderate_model, cond, toks, probe)[:end]
         assert check._gap(logits, toks[:end]).max() < 1e-4
         assert len(probe.err) == cfg.opt.num_layers and max(map(max, probe.err)) < 1e-5
         assert probe.share == 0
-        dl, mask = ref.detok_logits(W, moderate_model, pf, toks)
+        dl, mask = ref.detok_logits(W, moderate_model, pf, toks, iface["codebook"])
         bins, pmask = check._bins(out["coords"][b].float().numpy(), cfg.nrd.discrete_num)
         assert torch.equal(mask, pmask)
         if mask.any():

@@ -2,7 +2,8 @@
 
 The benchmark makes the weights itself from ``--seed``, so that the program
 and the plain reference get the same values and neither takes them from
-the other: ``fill`` walks ``reference/model.py::param_spec`` in its order,
+the other: ``fill`` walks ``reference/model.py::param_spec`` (the shared
+parts' entries around the decoder family's) in its order,
 draws one standard normal block for up to ``CHUNK`` elements of
 consecutive parameters from a ``torch.Generator`` on the device, and
 writes each parameter's slice, scaled, into the tensor that ``sink`` gives
@@ -15,9 +16,11 @@ The values follow the program's own seeded initialisation
 the perceiver's N(0, init_scale / sqrt(width)), tables and queries
 N(0, 0.02), biases 0, layer norms 1 and 0. (With small random biases and
 norms the greedy streams of random weights stop repeating, and the window
-tier's acceptance swings more with seed and input than with them alone.) ``lm_head``'s row of the end-of-sequence token is zero: its logit
-is then 0, under the best of the other 8,194 of every position, so no seed
-stops a request early and every request is the 800-face stress that the
+tier's acceptance swings more with seed and input than with them alone.)
+The output head's row of the end-of-sequence token (the family's
+``interface``: ``eos_row``, ``eos``) is zero: its logit is then 0, under
+the best of the other 8,194 of every position, so no seed stops a
+request early and every request is the 800-face stress that the
 reference's max-length run is (a seed whose weights emitted eos would cut
 the window tier's work short, which the single-token tier's
 ``early_exit=False`` does not).
@@ -30,7 +33,6 @@ import torch
 
 CHUNK = 1 << 26            # elements a draw: 256 MB of float32 at most
 TABLE_STD = 0.02
-EOS_ROW_OF = "opt.lm_head.weight"
 
 
 def _mean_std(kind: str, std: float) -> Tuple[float, float]:
@@ -63,11 +65,11 @@ def _chunks(spec: list) -> Iterator[List[tuple]]:
 
 @torch.no_grad()
 def fill(spec: list, sink: Callable[[str], torch.Tensor], seed: int, device: torch.device,
-         dtype: torch.dtype, eos: int) -> None:
+         dtype: torch.dtype, zero_row: Tuple[str, int]) -> None:
     """Write every parameter of ``spec`` into ``sink(name)`` (a tensor of
     the parameter's shape on ``device``): the seeded draw, scaled and
-    shifted, rounded to ``dtype``, then cast to the sink's dtype; row
-    ``eos`` of ``opt.lm_head.weight`` zero."""
+    shifted, rounded to ``dtype``, then cast to the sink's dtype; of
+    ``zero_row`` (name, row), that row zero."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed % (1 << 63))
     for group in _chunks(spec):
@@ -85,15 +87,15 @@ def fill(spec: list, sink: Callable[[str], torch.Tensor], seed: int, device: tor
             if tuple(target.shape) != tuple(shape):
                 raise ValueError(f"{name}: the program holds {tuple(target.shape)}, "
                                  f"the specification says {tuple(shape)}")
-            if name == EOS_ROW_OF:
-                values[eos] = 0
+            if name == zero_row[0]:
+                values[zero_row[1]] = 0
             target.copy_(values)
 
 
 def reference_params(spec: list, seed: int, device: torch.device, dtype: torch.dtype,
-                     eos: int) -> dict:
+                     zero_row: Tuple[str, int]) -> dict:
     """The same weights as float32 tensors by name, for the reference."""
     params = {name: torch.empty(shape, dtype=torch.float32, device=device)
               for name, shape, _, _ in spec}
-    fill(spec, params.__getitem__, seed, device, dtype, eos)
+    fill(spec, params.__getitem__, seed, device, dtype, zero_row)
     return params
