@@ -198,6 +198,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
      replayed, DDIM 50 steps twice bit-equal, Karras 32, image- and
      text-to-shape at B=1, ``sample_surface_torch`` against numpy. Neither
      phase may launch a kernel of K1-K5 / T1-T5.
+  18. moonlight (``moonlight_phase``): the Moonlight decoder's kernels at
+     its published widths against their plain versions: L1
+     (csrc/latent_attention.cu) at B 1 and 2, cur_len 258 to 7459, NaN
+     past the live rows, each case also with its first and then its last
+     live row made to carry the heads' attention (a row read one too few
+     or one too many moves the output whole), held to 1% of each head's
+     largest plain element; X1 (csrc/experts.cu) at B 1 and 3, 6 chosen
+     and 2 shared slots of 64 experts of 1,408, held to 1e-3 of the row's
+     largest plain element, its counter and routing record exact. Then
+     ``PhaseRunner.run`` on Moonlight-16B-A3B whole (``MoonlightConfig()``,
+     seeded N(0, 0.02) weights, 30.6 GB) at 800 faces, every count set to
+     0 just before: L1 27 and X1 26 calls in each graph's warm-up step and
+     capture, no other kernel of the wrappers, and the replays covering
+     the decode steps; the request's expert counter 6 a step in every MoE
+     layer, the routing record equal to it.
 
 Before the last line it prints {"kernels": [...]} (K1-K5 and T1-T5, each
 with its launches on the main, checkpoint, serving and parallel paths and the train phase's decode, its time, its plain
@@ -236,7 +251,8 @@ WINDOW_RTOL = 1e-2
 # at TOL["float32"].)
 QUANT_RTOL = 2e-2
 KERNEL_LIBS = ("decode_attention", "decode_attention_window", "decode_attention_quant",
-               "decode_attention_fast", "megakernel", "k1_probe", "add_layer_norm")
+               "decode_attention_fast", "megakernel", "k1_probe", "add_layer_norm",
+               "latent_attention", "experts")
 # the residual add and post-LN kernel: rows of the exact tier's step at B 1 and 16, a
 # lookahead-8 window's at B=16, and a small 3-D input; timed over a step's 48 norm sites
 ADD_LN_SHAPES = ((1, 1024), (16, 1024), (16, 8, 1024), (2, 3, 64))
@@ -3827,10 +3843,182 @@ def diffusion_phase(torch, wrappers: dict, card: str) -> None:
         raise AssertionError(f"diffusion: {failures}")
 
 
+MOON_CUR_LENS = (258, 1000, 3860, 7459)   # the latent cache's live rows over a mesh's decode
+MOON_RTOL = 1e-2      # L1's bf16 output: one bf16 step of a head's largest element
+X1_RTOL = 1e-3        # X1's f32 output: f32 sums of 2,048 and 1,408 products in another order
+
+
+def _steer(cache, q, layer: int, row: int, scale: float) -> None:
+    """Make cache row ``row`` of ``layer`` carry every head's attention: the
+    sum of the heads' queries, scaled so its logit is about 10 above the
+    others' (so reading one row more or fewer moves the output whole)."""
+    direction = q.float().sum(dim=1)                                  # (B, W)
+    gain = 10.0 / (scale * (q.float() * direction[:, None]).sum(-1).mean(-1))
+    cache[layer, :, row] = (direction * gain[:, None]).to(cache.dtype)
+
+
+def check_moonlight_kernels(torch, la, ex) -> dict:
+    """L1 and X1 against their plain versions at Moonlight's widths (phase
+    18) -> the worst error of each, as a share of its tolerance."""
+    dev = torch.device("cuda")
+    worst = {"l1": 0.0, "x1": 0.0}
+    failures = []
+    heads, latent, rope, seq, layers = 16, 512, 64, 7680, 3
+    scale = 192 ** -0.5
+    for batch in (1, 2):
+        g = torch.Generator(device=dev).manual_seed(batch)
+        base = torch.randn(layers, batch, seq, latent + rope, generator=g, device=dev).bfloat16()
+        q = (torch.randn(batch, heads, latent + rope, generator=g, device=dev) * 0.05).bfloat16()
+        for cur in MOON_CUR_LENS:
+            for steer in (None, 0, cur - 1):
+                cache = base.clone()
+                if steer is not None:
+                    _steer(cache, q, 1, steer, scale)
+                cache[1, :, cur:] = float("nan")
+                want = la.latent_attention_reference(q, cache, 1, cur, scale=scale,
+                                                     latent=latent).float()
+                length = torch.tensor(cur, dtype=torch.int32, device=dev)
+                got = la.latent_attention(q, cache, 1, length, scale=scale, latent=latent).float()
+                tol = MOON_RTOL * want.abs().amax(dim=-1, keepdim=True)
+                share = float(((got - want).abs() / tol).nan_to_num(float("inf")).max())
+                worst["l1"] = max(worst["l1"], share)
+                emit("moonlight_l1", batch=batch, cur_len=cur, steered_row=steer,
+                     err_over_tol=share)
+                if not share <= 1.0:
+                    failures.append(("l1", batch, cur, steer, share))
+    n_exp, k, d, width, moe_layers = 64, 6, 2048, 1408, 26
+    for batch in (1, 3):
+        g = torch.Generator(device=dev).manual_seed(10 + batch)
+
+        def w(*shape):
+            return (torch.randn(*shape, generator=g, device=dev) * 0.02).bfloat16()
+
+        x = torch.randn(batch, d, generator=g, device=dev).bfloat16()
+        mats = (w(n_exp, width, d), w(n_exp, width, d), w(n_exp, d, width))
+        shared = (w(2 * width, d), w(2 * width, d), w(d, 2 * width))
+        ids = torch.stack([torch.randperm(n_exp, generator=g, device=dev)[:k]
+                           for _ in range(batch)])
+        weights = torch.rand(batch, k, generator=g, device=dev)
+        counts = torch.zeros(moe_layers, n_exp, dtype=torch.int32, device=dev)
+        routes = torch.full((moe_layers, batch, seq, k), -1, dtype=torch.int32, device=dev)
+        pos = torch.tensor([4321], dtype=torch.int64, device=dev)
+        got = ex.routed_experts(x, ids, weights, *mats, shared=shared, counts=counts, layer=7,
+                                routes=routes, pos=pos)
+        want = ex.routed_experts_reference(x, ids, weights, *mats, shared=shared)
+        torch.cuda.synchronize()
+        tol = X1_RTOL * want.abs().amax(dim=-1, keepdim=True)
+        share = float(((got - want).abs() / tol).max())
+        worst["x1"] = max(worst["x1"], share)
+        counted = counts[7].tolist() == torch.bincount(ids.flatten(), minlength=n_exp).tolist() \
+            and int(counts.sum()) == batch * k
+        recorded = torch.equal(routes[7, :, 4321], ids.int()) and \
+            int((routes != -1).sum()) == batch * k
+        emit("moonlight_x1", batch=batch, slots=k + 2, err_over_tol=share, counted=counted,
+             recorded=recorded)
+        if not (share <= 1.0 and counted and recorded):
+            failures.append(("x1", batch, share, counted, recorded))
+    if failures:
+        raise AssertionError(f"moonlight kernels: {failures}")
+    return worst
+
+
+def _moonlight_model(torch, cfg, seed: int = 0):
+    """Moonlight-16B-A3B whole under MeshAnything's interface on the card,
+    bf16: every matrix and table N(0, 0.02), norm weights 1, biases 0, the
+    correction bias N(0, 0.05), eos's row of lm_head 0 (no request stops
+    early)."""
+    from meshanything_tpu_torch.models import moonlight
+    from meshanything_tpu_torch.models.meshanything import MeshAnything
+
+    net = MeshAnything(cfg, device="meta", dtype=torch.bfloat16).to_empty(device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    norms = {id(m.weight) for m in net.modules()
+             if isinstance(m, (torch.nn.LayerNorm, moonlight.RMSNorm))}
+    for name, p in net.named_parameters():
+        if id(p) in norms:
+            p.fill_(1.0)
+        elif name.endswith("e_score_correction_bias"):
+            p.normal_(0.0, 0.05, generator=g)
+        elif name.endswith("bias"):
+            p.zero_()
+        else:
+            p.normal_(0.0, 0.02, generator=g)
+    net.opt.lm_head.weight[cfg.opt.eos_token_id].zero_()
+    return net
+
+
+def moonlight_phase(torch, wrappers: dict, card: str) -> None:
+    """Phase 18 (see the module's text)."""
+    import gc
+
+    from meshanything_tpu_torch.config import MeshAnythingConfig, MoonlightConfig
+    from meshanything_tpu_torch.ops import experts as ex
+    from meshanything_tpu_torch.ops import latent_attention as la
+    from meshanything_tpu_torch.runtime import profiling
+    from meshanything_tpu_torch.runtime.decode_graph import StepGraph
+    from meshanything_tpu_torch.runtime.phases import PhaseRunner
+
+    worst = check_moonlight_kernels(torch, la, ex)
+    cfg = MeshAnythingConfig(opt=MoonlightConfig())
+    o = cfg.opt
+    net = _moonlight_model(torch, cfg)
+    gen = torch.Generator().manual_seed(3)
+    pc = torch.randn(1, cfg.perceiver.num_points, 6, generator=gen)
+    pc[..., 3:] /= pc[..., 3:].norm(dim=-1, keepdim=True)
+    runner = PhaseRunner(net, cfg, early_exit=False)
+    torch.cuda.synchronize()
+    _zero_counts(wrappers)
+    StepGraph.captures = StepGraph.replays = 0
+    t0 = time.perf_counter()
+    out = runner.run(pc.cuda())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    captures, replays, steps = out["graph_captures"], out["graph_replays"], out["decode_steps"]
+    wrapped = 2 * captures                  # each graph's warm-up step and its capture
+    expected = {k: 0 for k in wrappers}
+    expected.update(l1=o.num_layers * wrapped, x1=o.num_moe_layers * wrapped)
+    state = next(reversed(runner._kept.values())).state
+    request = [sp for sp in profiling.spans() if sp.name == "request"][-1]
+    counts = torch.tensor(request.attrs["expert_tokens"])
+    live = o.cond_length + steps            # positions whose routes a step or the prefill wrote
+    routes = state.routes[:, 0, o.cond_length:live].long().cpu()
+    recorded = torch.stack([torch.bincount(r.flatten(), minlength=o.n_routed_experts)
+                            for r in routes])
+    surplus = replays + captures - steps
+    emit("moonlight", run="phase_runner_800", card=card, wall_s=wall, decode_s=out["decode_s"],
+         decode_steps=steps, graph_captures=captures, graph_replays=replays, launches=launches,
+         replayed_launches={"l1": o.num_layers * replays, "x1": o.num_moe_layers * replays},
+         expert_tokens_per_layer=counts.sum(dim=1).tolist()[:3],
+         faces=int(out["coords"].shape[1]), worst=worst,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    failures = []
+    if launches != expected or not captures:
+        failures.append(f"launches {launches}, expected {expected}")
+    if StepGraph.captures != captures or StepGraph.replays != replays or \
+            not 0 <= surplus < segment_steps("k1"):
+        failures.append(f"{captures} captures and {replays} replays for {steps} steps")
+    if steps != cfg.generate_length - 1 or counts.shape != (o.num_moe_layers, o.n_routed_experts):
+        failures.append(f"decode_steps {steps}, counter {tuple(counts.shape)}")
+    elif not (counts.sum(dim=1) == counts.sum(dim=1)[0]).all() or \
+            int(counts[0].sum()) != o.num_experts_per_tok * (captures + replays):
+        # the counter counts every step the kernel ran: each graph's warm-up, then its replays
+        failures.append(f"expert tokens a layer {counts.sum(dim=1).tolist()}")
+    if not bool((recorded <= counts).all()) or \
+            int(recorded.sum()) != o.num_moe_layers * o.num_experts_per_tok * steps:
+        failures.append("the routing record disagrees with the expert counter")
+    del runner, net, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"moonlight: {failures}")
+
+
 PHASES = ("add_ln", "k4_check", "k1_check", "k23_check", "graph_replay", "device_length", "k1_time",
           "fast_time", "k5_check", "k5_replay", "k5_time", "probe_check", "probe_time",
           "measurement_path", "main_path", "graph_loop", "agreement", "floor", "serving",
-          "train", "checkpoint", "warm_start", "parallel", "parallel_nccl", "recon", "diffusion")
+          "train", "checkpoint", "warm_start", "parallel", "parallel_nccl", "recon", "diffusion",
+          "moonlight")
 
 
 def parse_only(argv: list) -> set:
@@ -3866,7 +4054,9 @@ def main(argv=None) -> int:
     from meshanything_tpu_torch.ops import _build
     from meshanything_tpu_torch.ops import add_layer_norm as aln
     from meshanything_tpu_torch.ops import decode_attention as da
+    from meshanything_tpu_torch.ops import experts as ex
     from meshanything_tpu_torch.ops import k1_probe as kp
+    from meshanything_tpu_torch.ops import latent_attention as la
     from meshanything_tpu_torch.ops import megakernel as mk
     from meshanything_tpu_torch.ops import probes as pr
     from meshanything_tpu_torch.tools.build_canary import canary
@@ -3955,7 +4145,7 @@ def main(argv=None) -> int:
                 "k3": da.decode_attention_int4, "k4": da.decode_attention_mq,
                 "k5": mk.decode_step_megakernel, "t1": pr.stream, "t2": pr.stream_rot,
                 "t3": pr.dual_stream, "t4": kp.k1_probe, "t5": pr.scale_shift,
-                "aln": aln.add_layer_norm}
+                "aln": aln.add_layer_norm, "l1": la.latent_attention, "x1": ex.routed_experts}
     if "measurement_path" in only:
         probe_launches = drive_measurement_path(torch, wrappers)
     tick("measurement_path")
@@ -4002,6 +4192,9 @@ def main(argv=None) -> int:
     if "diffusion" in only:
         diffusion_phase(torch, wrappers, card)
     tick("diffusion")
+    if "moonlight" in only:
+        moonlight_phase(torch, wrappers, card)
+    tick("moonlight")
     if only == set(PHASES):
         print(json.dumps(kernels_line(runs, times, probe_times, probe_launches, worst, roof_gbs,
                                       serving_launches, train_launches, parallel_launches,

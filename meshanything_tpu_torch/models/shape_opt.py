@@ -143,6 +143,8 @@ class OPTLayer(nn.Module):
 
 
 class ShapeOPT(nn.Module):
+    decoder = "opt"
+
     def __init__(self, cfg: ShapeOPTConfig, device=None, dtype=None):
         super().__init__()
         f = {"device": device, "dtype": dtype}
@@ -506,29 +508,39 @@ def step_body(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
                                 q.reshape(b, h, hd).contiguous(), k, v, layer.tp_group)
             x = layer.after_attention(x, o.reshape(b, h * hd), mats, lin_e, add_layer_norm)
     logits = lin(x, p.lm_head).float()   # keeps the activation dtype's rounding
+    advance(cfg, state, logits, sampling=sampling, top_k=top_k, top_p=top_p,
+            temperature=temperature, early_exit=early_exit)
+    return logits
 
+
+def advance(cfg, state: DecodeState, logits: torch.Tensor, *, sampling: bool, top_k: int,
+            top_p: float, temperature: float, early_exit: bool) -> None:
+    """The end of a step, with no host read (every decoder's): the next
+    token from the step's f32 logits (B, vocab), written to its slot, the
+    flags and ``step_t`` advanced; with ``early_exit`` a step after every
+    row has finished leaves them as they are."""
     next_token = sample_token(logits, sampling=sampling, top_k=top_k, top_p=top_p,
                               temperature=temperature, generator=state.generator)
     # finished rows emit pad (HF generate semantics, meshanything.py:150)
     next_token = torch.where(state.done, cfg.pad_token_id, next_token)
     slot = state.step_t.reshape(1)
-    written, advance = next_token, 1
+    written, step = next_token, 1
     if early_exit:
         live = ~state.done.all()
         written = torch.where(live, next_token, state.tokens.index_select(1, slot)[:, 0])
         next_token = torch.where(live, next_token, state.last_token)
-        advance = live.long()
+        step = live.long()
     state.tokens.index_copy_(1, slot, written[:, None])
     state.done.logical_or_(next_token == cfg.eos_token_id)
     state.last_token.copy_(next_token)
-    state.step_t.add_(advance)
-    return logits
+    state.step_t.add_(step)
 
 
-def decode_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, **step_kw) -> torch.Tensor:
-    """``step_body`` run eagerly, and the host's step counter advanced
-    with it; returns the step's f32 logits (B, vocab)."""
-    logits = step_body(p, cfg, state, **step_kw)
+def decode_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *, body=None,
+                **step_kw) -> torch.Tensor:
+    """``body`` (default ``step_body``) run eagerly, and the host's step
+    counter advanced with it; returns the step's f32 logits (B, vocab)."""
+    logits = (step_body if body is None else body)(p, cfg, state, **step_kw)
     state.step += 1
     return logits
 
@@ -538,12 +550,57 @@ def check_wq(attn: str, wq: bool) -> None:
         raise ValueError("wq (int8 weights) does not compose with the megakernel path")
 
 
+# ---------------------------------------------------------------------------
+# what the runner asks of a decoder module (``meshanything.decoder_module``)
+# beside its decode: ``Decoder``, ``check_tier``, ``libraries``,
+# ``quantize_layers``, ``cache_bytes``, ``prefill_elems`` and ``wq_sizes``
+
+Decoder = ShapeOPT
+quantize_layers = quantize_opt_layers
+
+
+def check_tier(attn: str = "pallas", lookahead=0) -> None:
+    """OPT runs every tier: nothing to refuse here (the lookahead's and
+    ``wq``'s own checks are ``lookahead.check_attn`` and ``check_wq``)."""
+
+
+def libraries(o: ShapeOPTConfig, attn: str, lookahead, dtype: torch.dtype) -> tuple:
+    """The kernel libraries a decode of the tier launches."""
+    from meshanything_tpu_torch.runtime import aot
+
+    return aot.libraries_for(attn, lookahead, dtype, o.head_dim)
+
+
+def cache_bytes(o: ShapeOPTConfig, batch: int, s_max: int, int8: bool = False,
+                int4: bool = False) -> int:
+    """The K/V cache: K and V of ``hidden_size`` a layer and position, at
+    two bytes an element (bf16), one (int8) or half a byte (int4)."""
+    elems = 2 * o.num_layers * batch * s_max * o.hidden_size
+    if int4:
+        return elems // 2
+    return elems * (1 if int8 else 2)
+
+
+def prefill_elems(o: ShapeOPTConfig, rows: int, positions: int, itemsize: int) -> int:
+    """The prefill's compact K/V rows of ``rows`` sequences of
+    ``positions``, in elements."""
+    return 2 * o.num_layers * rows * positions * o.hidden_size
+
+
+def wq_sizes(o: ShapeOPTConfig) -> tuple:
+    """(elements, output channels) of the ``wq`` tier's int8 matrices:
+    every layer's QKV, out projection and FFN."""
+    return (o.num_layers * (4 * o.hidden_size ** 2 + 2 * o.hidden_size * o.ffn_dim),
+            o.num_layers * (6 * o.hidden_size + o.ffn_dim))
+
+
 def decode_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
                    max_new_tokens: int, until: Optional[int] = None, early_exit: bool = True,
                    wq_layers: Optional[Sequence] = None,
                    mega_layers: Optional[MegakernelLayers] = None, graph: bool = True,
                    sampling: bool = False, top_k: int = 50, top_p: float = 0.95,
-                   temperature: float = 1.0) -> DecodeState:
+                   temperature: float = 1.0, body=None,
+                   counters=CAPTURE_COUNTERS) -> DecodeState:
     """JAX's ``decode_segment``: decode steps while the step is below
     ``max_new_tokens`` and, when given, below ``until``, and, with
     ``early_exit``, while some row is live. A step after every row has
@@ -563,7 +620,12 @@ def decode_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
     The segment is a ``segment`` span (``runtime/profiling.py``): its
     device time covers the replays or eager steps (from after a capture),
     with its first step, the steps run, the host's launch time and its
-    wait at the read as attributes."""
+    wait at the read as attributes.
+
+    ``body`` is the decoder's step (default ``step_body``; the Moonlight
+    decoder passes its own, ``models/moonlight.py``) and ``counters`` the
+    launch counts its ``capture`` span records."""
+    body = step_body if body is None else body
     bound = max_new_tokens if until is None else min(int(until), max_new_tokens)
     n = bound - state.step
     step_kw = dict(wq_layers=wq_layers, mega_layers=mega_layers, sampling=sampling, top_k=top_k,
@@ -577,9 +639,9 @@ def decode_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
             if state.graph is None:
                 check_capture(p)
                 state.graph = decode_graph.StepGraph(
-                    lambda: step_body(p, cfg, state, **step_kw), device,
+                    lambda: body(p, cfg, state, **step_kw), device,
                     generator=state.generator if sampling else None, key=key,
-                    counters=CAPTURE_COUNTERS)
+                    counters=counters)
                 ran, n = 1, n - 1   # the warm-up before the capture was this segment's first step
                 sp.set(captured=1)
             elif state.graph.key != key:
@@ -595,7 +657,7 @@ def decode_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
             for _ in range(max(n, 0)):
                 if device.type != "cuda" and early_exit and bool(state.done.all()):
                     break       # on the CPU the read costs nothing, the no-op steps do
-                decode_step(p, cfg, state, **step_kw)
+                decode_step(p, cfg, state, body=body, **step_kw)
                 ran += 1
         t1 = time.perf_counter_ns()
         sp.device_end()

@@ -369,6 +369,8 @@ def shard_params(mesh: Mesh, model: nn.Module) -> nn.Module:
     one model rank the local module is ``model`` itself."""
     if mesh.model == 1:
         return model
+    if model.opt.decoder != "opt":
+        raise ValueError(f"tensor parallelism is not ported for the {model.opt.decoder} decoder")
     _check_heads(mesh, model)
     local = shard_tensors(mesh, {n: p.detach() for n, p in model.named_parameters()})
     return _rebuilt(model, local, lambda h: h // mesh.model, mesh.model_group)

@@ -62,18 +62,19 @@ def estimate_kv_bytes(cfg: MeshAnythingConfig, batch: int, bucket: int = 512,
                       int8: bool = False, extra_tokens: int = 0,
                       int4: bool = False) -> int:
     """Upper bound of the KV cache's values for a generation batch, at
-    two bytes an element (bf16), one (int8) or half a byte (int4).
+    two bytes an element (bf16), one (int8) or half a byte (int4). The
+    Moonlight decoder's latent cache holds ``cache_width`` values (576) a
+    layer and position, where OPT's holds K and V of ``hidden_size`` each,
+    and its routing record K int32 ids a MoE layer and position.
 
     extra_tokens: lookahead windows extend the cache by W slots. The
     quantized tiers' f32 row scales are not in it (``check_memory_budget``
     adds them)."""
+    from meshanything_tpu_torch.models.meshanything import decoder_module
+
     c = cfg.cond_length
     s_max = -(-(c + cfg.generate_length + extra_tokens) // bucket) * bucket
-    o = cfg.opt
-    elems = 2 * o.num_layers * batch * s_max * o.hidden_size
-    if int4:
-        return elems // 2
-    return elems * (1 if int8 else 2)
+    return decoder_module(cfg).cache_bytes(cfg.opt, batch, s_max, int8, int4)
 
 
 def param_tree_bytes(model: torch.nn.Module) -> int:
@@ -126,11 +127,13 @@ def check_memory_budget(cfg: MeshAnythingConfig, batch: int, bucket: int = 512,
         if device is None:
             raise ValueError("check_memory_budget needs limit_bytes or a device")
         limit_bytes = device_limit_bytes(device)
-    o = cfg.opt
+    from meshanything_tpu_torch.models.meshanything import decoder_module
+
+    o, decoder = cfg.opt, decoder_module(cfg)
     int8, int4 = attn == "pallas_int8", attn == "pallas_int4"
     kv = estimate_kv_bytes(cfg, batch, bucket, int8, extra_tokens, int4=int4)
     itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()
-    compact = 2 * o.num_layers * batch * (cfg.cond_length + prompt_tokens) * o.hidden_size
+    compact = decoder.prefill_elems(o, batch, cfg.cond_length + prompt_tokens, itemsize)
     if int8 or int4:
         rows = kv * (2 if int4 else 1) // o.hidden_size       # (plane, layer, row) triples
         kv += 4 * rows
@@ -139,11 +142,11 @@ def check_memory_budget(cfg: MeshAnythingConfig, batch: int, bucket: int = 512,
         kv = kv * itemsize // 2
         prefill = compact * itemsize
     tier = 0
-    matrices = o.num_layers * (4 * o.hidden_size ** 2 + 2 * o.hidden_size * o.ffn_dim)
+    matrices, channels = decoder.wq_sizes(o)
+    wq_bytes = matrices + 4 * channels if wq else 0     # int8 values and f32 channel scales
     if attn == "megakernel":
         vectors = o.num_layers * (9 * o.hidden_size + o.ffn_dim)
         tier += matrices * 2 + vectors * 4 + (matrices * itemsize if itemsize != 2 else 0)
-    wq_bytes = matrices + 4 * o.num_layers * (6 * o.hidden_size + o.ffn_dim) if wq else 0
     tier += wq_bytes
     p, n = cfg.perceiver, cfg.nrd
     ntok = n.cond_length + cfg.n_max_triangles
@@ -243,6 +246,7 @@ class PhaseRunner:
         self.cfg = cfg
         self.bucket = bucket
         self.attn = opt_mod.resolve_attn(attn)
+        self._decoder().check_tier(self.attn, lookahead)
         if lookahead:
             la_mod.check_attn(self.attn)
         opt_mod.check_wq(self.attn, wq)
@@ -287,7 +291,6 @@ class PhaseRunner:
         "built": [the names this call built], "graph_captures": n,
         "capture_s": s}."""
         from meshanything_tpu_torch.models import lookahead as la_mod
-        from meshanything_tpu_torch.models import shape_opt as opt_mod
         from meshanything_tpu_torch.ops import _build
         from meshanything_tpu_torch.runtime import aot, decode_graph
 
@@ -295,8 +298,8 @@ class PhaseRunner:
         if self.device.type != "cuda":
             return report
         cfg = self.cfg
-        names = aot.libraries_for(self.attn, self.lookahead, cfg.activation_dtype,
-                                  cfg.opt.head_dim)
+        names = self._decoder().libraries(cfg.opt, self.attn, self.lookahead,
+                                          cfg.activation_dtype)
         loaded = set(_build._loaded)                 # loaded (or built) before this call
         libs = aot.build(names)
         report["libraries"] = [lib.path for lib in libs]
@@ -320,10 +323,10 @@ class PhaseRunner:
                                              wq_layers=self._wq(), until_iters=st.iters + 1,
                                              sampling=sampling, graph=self.graph)
             else:
-                opt_mod.decode_segment(self.model.opt, cfg.opt, state, max_new_tokens=gl,
-                                       until=state.step + 1, early_exit=self.early_exit,
-                                       wq_layers=self._wq(), sampling=sampling,
-                                       graph=self.graph)
+                self._decoder().decode_segment(self.model.opt, cfg.opt, state, max_new_tokens=gl,
+                                               until=state.step + 1, early_exit=self.early_exit,
+                                               wq_layers=self._wq(), sampling=sampling,
+                                               graph=self.graph)
             self._finish(kept, generator)
             stats = _graph_stats(_graphs_of(state), before)
         report.update(graph_captures=stats["graph_captures"], capture_s=stats["capture_s"])
@@ -334,13 +337,18 @@ class PhaseRunner:
     def _keeps(self) -> bool:
         return self.attn != "megakernel"
 
+    def _decoder(self):
+        """The module of the model's shape decoder (``shape_opt`` or
+        ``moonlight``): its init, segment and loop."""
+        from meshanything_tpu_torch.models.meshanything import decoder_module
+
+        return decoder_module(self.cfg)
+
     def _wq(self):
         """The int8 layer matrices, quantized once (the kept graphs read
         them)."""
-        from meshanything_tpu_torch.ops.wquant import quantize_opt_layers
-
         if self.wq and self._wq_layers is None:
-            self._wq_layers = quantize_opt_layers(self.model.opt.layers)
+            self._wq_layers = self._decoder().quantize_layers(self.model.opt.layers)
         return self._wq_layers
 
     def _budget(self, batch: int, prompt_tokens: int, key: tuple) -> None:
@@ -373,7 +381,6 @@ class PhaseRunner:
         from its own generator, which takes the request's seed and offset
         here and gives them back in ``_finish``."""
         from meshanything_tpu_torch.models import lookahead as la_mod
-        from meshanything_tpu_torch.models import shape_opt as opt_mod
 
         cfg, m = self.cfg, self.model
         key = (cond.shape[0], sampling)
@@ -397,7 +404,7 @@ class PhaseRunner:
                 bucket=self.bucket, attn=self.attn, sampling=sampling, generator=generator,
                 buf_window=big, prompt_ids=prompt_ids, into=into)
         else:
-            state = opt_mod.init_decode_state(
+            state = self._decoder().init_decode_state(
                 m.opt, cfg.opt, cond, max_new_tokens=cfg.generate_length, bucket=self.bucket,
                 generator=generator, attn=self.attn, sampling=sampling, prompt_ids=prompt_ids,
                 into=into)
@@ -487,7 +494,6 @@ class PhaseRunner:
     @torch.no_grad()
     def _generate(self, pc_normal, sampling, generator, prompt_ids, timer) -> dict:
         from meshanything_tpu_torch.models import meshanything as ma
-        from meshanything_tpu_torch.models import shape_opt as opt_mod
 
         cfg, m, dev = self.cfg, self.model, self.device
         b = pc_normal.shape[0]
@@ -504,11 +510,16 @@ class PhaseRunner:
                 if self.lookahead:
                     out = self._decode_lookahead(state, sampling, p_len)
                 else:
-                    state = opt_mod.decode_loop(
+                    state = self._decoder().decode_loop(
                         m.opt, cfg.opt, state, max_new_tokens=cfg.generate_length, wq=self.wq,
                         sampling=sampling, graph=self.graph, early_exit=self.early_exit,
                         wq_layers=self._wq())
                     out = {"tokens": state.tokens.clone(), "decode_steps": state.step - 1 - p_len}
+                counts = getattr(state, "expert_counts", None)
+                if counts is not None:
+                    # the expert kernel's tokens per (MoE layer, expert): read once, reset
+                    req.set(expert_tokens=counts.tolist())
+                    counts.zero_()
                 out.update(_graph_stats(_graphs_of(state), before))
                 self._finish(kept, generator)
                 del state       # unkept (megakernel): the cache goes before detok allocates
