@@ -16,8 +16,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
      int8 and int4 caches (csrc/decode_attention_window.cu), K2 and K3
      (csrc/decode_attention_quant.cu), the other K4s
      (csrc/decode_attention_fast.cu), K5 (csrc/megakernel.cu), T4
-     (csrc/k1_probe.cu) and the residual add and post-LN
-     (csrc/add_layer_norm.cu) are compiled with nvcc, all seven at once;
+     (csrc/k1_probe.cu), the residual add and post-LN
+     (csrc/add_layer_norm.cu) and the few-row product (csrc/gemv.cu) are
+     compiled with nvcc, all at once;
   2a. add_ln: the residual add and post-LN kernel against its plain
      version (``ln(x + y, m)``) at (1, 1024), (16, 1024), (16, 8, 1024) and
      (2, 3, 64), bf16 (every element within one bf16 ulp, at least 99%
@@ -26,6 +27,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
      step's 48 norm sites (device time of CUDA-graph replays) beside its
      byte bound, its plain version's time and F.layer_norm's on the sum
      (the library call, which the port does not make);
+  2b. gemv: the few-row product kernel at every product of the two
+     decode steps (OPT-350M's qkv, out, fc1, fc2, lm_head and codebook
+     projection; Moonlight's q, latent, o, dense MLP, lm_head and codebook
+     projection), 1, 2, 3, 8 and 16 rows, with and without the bias and
+     fc1's ReLU: its largest error against the f32 product no larger than
+     its plain version's (``F.linear``, then ``F.relu``: cuBLAS), two calls
+     equal bit for bit, one launch a call; a step's chain (qkv, out, the
+     residual add and post-LN, fc1, fc2) replayed from a CUDA graph
+     bit-equal to the eager calls; then timed at 1 and 16 rows, per shape
+     over 24 matrices of it and over OPT's whole step (98 products),
+     beside the plain version, cuBLAS alone and the byte bound;
   3. K1 against its plain PyTorch version at the production shapes
      (L=24, H=16, D=64, S=7680, layer 23; B 1 and 16; cur_len 1, 257,
      4000, 7459; f32 and bf16), with a NaN tail past cur_len and NaN in
@@ -252,7 +264,7 @@ WINDOW_RTOL = 1e-2
 QUANT_RTOL = 2e-2
 KERNEL_LIBS = ("decode_attention", "decode_attention_window", "decode_attention_quant",
                "decode_attention_fast", "megakernel", "k1_probe", "add_layer_norm",
-               "latent_attention", "experts")
+               "latent_attention", "experts", "gemv")
 # the residual add and post-LN kernel: rows of the exact tier's step at B 1 and 16, a
 # lookahead-8 window's at B=16, and a small 3-D input; timed over a step's 48 norm sites
 ADD_LN_SHAPES = ((1, 1024), (16, 1024), (16, 8, 1024), (2, 3, 64))
@@ -260,6 +272,17 @@ ADD_LN_TIMED = ((1, 1024), (16, 1024))
 ADD_LN_SITES = 48
 ADD_LN_F32_ROW_RTOL = 2e-6        # f32: a few ulp of the row's largest element
 ADD_LN_BF16_SAME_MIN = 0.99       # bf16: every element within one ulp, 99% identical
+# the few-row product kernel: (N, K, bias, ReLU) of every product of OPT-350M's step
+# (qkv, out, fc1, fc2, lm_head, the codebook projection) and of Moonlight's (q, latent,
+# o, the dense MLP's gate / up and down, lm_head, the codebook projection)
+GEMV_OPT = ((3072, 1024, True, False), (1024, 1024, True, False), (4096, 1024, True, True),
+            (1024, 4096, True, False), (8195, 1024, False, False), (1024, 1024, True, False))
+GEMV_MOON = ((3072, 2048, False, False), (576, 2048, False, False), (2048, 2048, False, False),
+             (11264, 2048, False, False), (2048, 11264, False, False),
+             (8195, 2048, False, False), (2048, 1024, True, False))
+GEMV_ROWS = (1, 2, 3, 8, 16)
+GEMV_TIMED_ROWS = (1, 16)
+GEMV_MATS = 24                    # distinct matrices a timed sweep: none of them stays in L2
 PROBE_GIB = 4                     # T1-T3 are timed on arrays of this size
 PROBE_CUR = 7168                  # live rows T4 is timed at (the TPU tool's)
 FFN = 4096                        # the 350M model's fc1 width
@@ -583,6 +606,134 @@ def time_add_ln(torch, aln, card: str) -> dict:
         emit("add_ln_time", shape=list(shape), dtype="bfloat16", sites=ADD_LN_SITES, **t,
              bytes=moved, card=card)
         del sites, sums, sweeps
+    return times
+
+
+def _gemv_inputs(torch, gen, rows, n, k, bias):
+    """x (rows, k), weight (n, k), bias (n,) or None, bf16 on the card."""
+    x = torch.randn((rows, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((n, k), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    b = ((torch.randn((n,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+         if bias else None)
+    return x, w, b
+
+
+def _f32_product(torch, x, w, b, relu):
+    y = x.float() @ w.float().T + (0.0 if b is None else b.float())
+    return torch.relu(y) if relu else y
+
+
+def check_gemv(torch, gv) -> float:
+    """Phase gemv, the checks; returns the largest ratio of the kernel's
+    error against the f32 product to its plain version's (cuBLAS)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst, failures = 0.0, []
+    for n, k, bias, relu in GEMV_OPT + GEMV_MOON + ((5, 64, True, True), (17, 40, True, False)):
+        for rows in GEMV_ROWS:
+            for use_bias, use_relu in sorted({(bias, relu), (False, False)}):
+                x, w, b = _gemv_inputs(torch, gen, rows, n, k, use_bias)
+                before = gv.gemv.launches
+                out = gv.gemv(x, w, b, use_relu)
+                again = gv.gemv(x, w, b, use_relu)
+                plain = gv.gemv_reference(x, w, b, use_relu)
+                want = _f32_product(torch, x, w, b, use_relu)
+                torch.cuda.synchronize()
+                err = (out.float() - want).abs().max().item()
+                plain_err = (plain.float() - want).abs().max().item()
+                ratio = err / plain_err if plain_err else (0.0 if err == 0 else float("inf"))
+                ok = (err <= plain_err and bool(torch.equal(out, again))
+                      and gv.gemv.launches == before + 2)
+                worst = max(worst, ratio)
+                emit("gemv_check", shape=[n, k], rows=rows, bias=use_bias, relu=use_relu,
+                     max_abs_err=err, plain_max_abs_err=plain_err, ok=ok)
+                if not ok:
+                    failures.append((n, k, rows, use_bias, use_relu, err, plain_err))
+    failures += check_gemv_replay(torch, gv)
+    if failures:
+        raise AssertionError(f"gemv disagrees: {failures}")
+    return worst
+
+
+def check_gemv_replay(torch, gv) -> list:
+    """A step's chain (qkv; out; the residual add and post-LN, which lets
+    its programmatic dependents start; fc1 with its ReLU; fc2) captured in
+    a CUDA graph: replays bit-equal to the eager calls, at 1 and 16 rows."""
+    from meshanything_tpu_torch.ops.add_layer_norm import add_layer_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    failures = []
+    for rows in GEMV_TIMED_ROWS:
+        x, _, _ = _gemv_inputs(torch, gen, rows, 1, D * H, False)
+        mats = [_gemv_inputs(torch, gen, 1, n, k, True)[1:] for n, k, _, _ in GEMV_OPT[:4]]
+        norm = torch.nn.LayerNorm(D * H, device="cuda").to(torch.bfloat16).requires_grad_(False)
+
+        def chain():
+            qkv = gv.gemv(x, *mats[0])
+            h = add_layer_norm(x, gv.gemv(qkv[:, :D * H].contiguous(), *mats[1]), norm)
+            return gv.gemv(gv.gemv(h, *mats[2], relu=True), *mats[3])
+
+        eager = chain()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            chain()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = chain()
+        equal = []
+        for _ in range(20):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            equal.append(bool(torch.equal(out, eager)))
+        emit("gemv_replay", rows=rows, replays=len(equal), bit_equal=all(equal))
+        if not all(equal):
+            failures.append(("replay", rows))
+    return failures
+
+
+def time_gemv(torch, gv, card: str) -> dict:
+    """Phase gemv, the timing: ms a call at each shape and at 1 and 16 rows,
+    over GEMV_MATS distinct matrices of the shape (so none stays in L2),
+    as graph replays: the kernel, its plain version (F.linear, then F.relu
+    where the step asks it) and cuBLAS's F.linear alone; then OPT-350M's
+    step of 98 products, each matrix its own, the same three ways."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    times = {}
+
+    def sweeps(xs, mats):
+        return {"kernel": lambda: [gv.gemv(xs[w.shape[1]], w, b, r) for w, b, r in mats],
+                "plain": lambda: [gv.gemv_reference(xs[w.shape[1]], w, b, r) for w, b, r in mats],
+                "library": lambda: [F.linear(xs[w.shape[1]], w, b) for w, b, _ in mats]}
+
+    for n, k, bias, relu in GEMV_OPT[:5] + GEMV_MOON:
+        mats = [(*_gemv_inputs(torch, gen, 1, n, k, bias)[1:], relu) for _ in range(GEMV_MATS)]
+        for rows in GEMV_TIMED_ROWS:
+            xs = {k: _gemv_inputs(torch, gen, rows, 1, k, False)[0]}
+            t = _time_sweeps(torch, sweeps(xs, mats), GEMV_MATS)
+            moved = 2 * (n * k + rows * k + rows * n + (n if bias else 0))
+            t["bound_ms"], t["bound_by"] = bound(moved, 2 * rows * n * k, "bfloat16")
+            times[(n, k, rows)] = t
+            emit("gemv_time", shape=[n, k], rows=rows, relu=relu, matrices=GEMV_MATS, **t,
+                 bytes=moved, share_of_bound=t["bound_ms"] / t["ms"], card=card)
+        del mats
+    d, f = D * H, FFN
+    layer = ((3 * d, d, True, False), (d, d, True, False), (f, d, True, True), (d, f, True, False))
+    step = [(*_gemv_inputs(torch, gen, 1, n, k, bias)[1:], relu)
+            for n, k, bias, relu in layer * L + (GEMV_OPT[5], GEMV_OPT[4])]
+    moved_w = sum(2 * w.numel() for w, _, _ in step)
+    for rows in GEMV_TIMED_ROWS:
+        xs = {k: _gemv_inputs(torch, gen, rows, 1, k, False)[0] for k in (d, f)}
+        t = _time_sweeps(torch, sweeps(xs, step), 1)
+        t["bound_ms"], t["bound_by"] = moved_w / HBM_BYTES_PER_S * 1e3, "bytes"
+        times[("opt_step", rows)] = t
+        emit("gemv_time", shape="opt_step", products=len(step), rows=rows, **t,
+             weight_bytes=moved_w, share_of_bound=t["bound_ms"] / t["ms"], card=card)
+    del step
+    torch.cuda.empty_cache()
     return times
 
 
@@ -1723,6 +1874,15 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
     expected = {k: (per_unit * wrapped if k == kernel else 0) for k in wrappers}
     # two residual adds and post-LNs a layer in each of those steps (forwards); K5 has its own
     expected["aln"] = 2 * L * wrapped if kernel != "k5" else 0
+    # the few-row product: each of those steps' (forwards') products of 1 to 16 bf16 rows
+    # (GEMV_PER_UNIT); F2's windows of 8 rows a mesh (16 rows) take it, its windows of 16
+    # (32 rows) cuBLAS, so it launches 98 for each of the 8-wide graph's warm-up and capture
+    expected["gemv"] = GEMV_PER_UNIT[name] * wrapped
+    if name in ADAPTIVE_RUNS:
+        per_graph = 2 * GEMV_PER_UNIT[name]
+        expected["gemv"] = launches["gemv"] if (
+            0 < launches["gemv"] <= per_graph * captures and launches["gemv"] % per_graph == 0
+        ) else -1
     if launches != expected or units == 0:
         raise AssertionError(f"{name}: launches {launches}, expected {expected}")
     # every tier but K5's replays its steps: one warm-up step a graph, then one replay
@@ -1759,6 +1919,8 @@ def run_main_path(torch, wrappers: dict, load_obj, name: str, run, expect: int, 
         # the kernel's launches inside the replayed graphs (24 a replay; K5: none), and
         # the residual add and post-LN kernel's (48 a replay)
         "replayed_launches": per_unit * replays, "replayed_launches_add_ln": 2 * L * replays,
+        "replayed_launches_gemv": (GEMV_PER_UNIT[name] * replays if name not in ADAPTIVE_RUNS
+                                   else None),
         "host_launches_per_unit": (replays + captures) / units if captures else None,
         "capture_s": sum(r["capture_s"] for r in batches.values()),
         "wall_s": wall,
@@ -1806,6 +1968,15 @@ def segment_steps(kernel: str) -> int:
 # repeats exact_pc's tier and would add ~1 min of eager decode to the smoke)
 PAIRED_RUNS = ("exact_pc", "F1", "F2", "F3", "F4", "F5")
 WINDOW_KERNEL_RUNS = ("F3",)      # the runs whose K4 is the bf16 tensor-core kernel
+# the few-row product kernel's launches a decode step (window forward) of each main-path
+# run: every layer matrix, the codebook projection and lm_head (4 L + 2) where the rows
+# (B, or B x W) are at most 16 and the weights bf16; with W8A8 layer matrices (F1, F5) and
+# beside K5 (M1, M2) the codebook projection and lm_head alone; F2's 8-wide windows (B=2)
+GEMV_PER_UNIT = {**{run: 4 * L + 2 for run in ("exact_pc", "exact_meshes", "exact_pc_800", "F2",
+                                               "F3", "F4", "cli_mc", "cli_complete_from",
+                                               "C_exact", "C_native")},
+                 **{run: 2 for run in ("F1", "F5", "M1", "M2", "C_fast")}}
+ADAPTIVE_RUNS = ("F2",)           # windows of 8 and 16 rows a mesh, the 16 past the kernel
 # and those whose K4 is its int8/int4 instances
 QUANT_WINDOW_KERNEL_RUNS = ("F1", "F2", "C_fast")
 
@@ -2201,9 +2372,9 @@ def serving_phase(torch, wrappers: dict, cli, load_obj, card: str) -> tuple:
         if not prompt_ok:
             failures.append("the completion's stream does not start with its prompt")
         exact_only = {k: v for k, v in exact_counts.items()
-                      if k not in ("k1", "aln", "graph_captures", "graph_replays") and v}
+                      if k not in ("k1", "aln", "gemv", "graph_captures", "graph_replays") and v}
         fast_only = {k: v for k, v in fast_counts.items()
-                     if k not in ("k4", "k4_quant_window", "aln", "graph_captures",
+                     if k not in ("k4", "k4_quant_window", "aln", "gemv", "graph_captures",
                                   "graph_replays") and v}
         if (exact_counts["k1"] != 2 * L * exact_counts["graph_captures"]
                 or not exact_counts["graph_replays"] or exact_only
@@ -2519,7 +2690,7 @@ def train_phase(torch, wrappers: dict, card: str) -> dict:
         counts = _serving_counts(wrappers)
     L = cfg.opt.num_layers
     others = {k: n for k, n in counts.items()
-              if k not in ("k1", "k4", "k4_window", "aln", "graph_captures", "graph_replays")
+              if k not in ("k1", "k4", "k4_window", "aln", "gemv", "graph_captures", "graph_replays")
               and n}
     if not (counts["k1"] and counts["k4_window"] and replays["k1"] and replays["k4_window"]):
         failures.append(f"the decode did not launch K1 and the bf16 K4 and replay both: "
@@ -2785,7 +2956,7 @@ def warm_start_phase(torch, wrappers: dict, load_obj, card: str) -> None:
                             f"{[s['graph_captures'] for s in sampled]}")
         for counts in (exact_counts, sampled_counts):
             other = {k: v for k, v in counts.items()
-                     if k not in ("k1", "aln", "graph_captures", "graph_replays") and v}
+                     if k not in ("k1", "aln", "gemv", "graph_captures", "graph_replays") and v}
             if (not counts["k1"] or other or (counts["graph_captures"] and counts["k1"] != 2 * L
                                               * counts["graph_captures"])
                     or not _add_ln_follows(counts, "k1")):
@@ -2808,7 +2979,7 @@ def warm_start_phase(torch, wrappers: dict, load_obj, card: str) -> None:
         if [s["graph_captures"] for s in served] != [1, 0] or served[1]["capture_s"] != 0:
             failures.append(f"the --fast engine's second request captured: {served}")
         fast_other = {k: v for k, v in fast_counts.items()
-                      if k not in ("k4", "k4_quant_window", "aln", "graph_captures",
+                      if k not in ("k4", "k4_quant_window", "aln", "gemv", "graph_captures",
                                    "graph_replays") and v}
         if (not fast_counts["k4_quant_window"] or fast_counts["k4"] != fast_counts[
                 "k4_quant_window"] or fast_other or not _add_ln_follows(fast_counts, "k4")):
@@ -3977,7 +4148,11 @@ def moonlight_phase(torch, wrappers: dict, card: str) -> None:
     captures, replays, steps = out["graph_captures"], out["graph_replays"], out["decode_steps"]
     wrapped = 2 * captures                  # each graph's warm-up step and its capture
     expected = {k: 0 for k in wrappers}
-    expected.update(l1=o.num_layers * wrapped, x1=o.num_moe_layers * wrapped)
+    # the few-row product: q, latent and o a layer, the dense MLP, the codebook projection
+    # and lm_head (86 a step)
+    gemv_a_step = 3 * o.num_layers + 3 * o.first_k_dense_replace + 2
+    expected.update(l1=o.num_layers * wrapped, x1=o.num_moe_layers * wrapped,
+                    gemv=gemv_a_step * wrapped)
     state = next(reversed(runner._kept.values())).state
     request = [sp for sp in profiling.spans() if sp.name == "request"][-1]
     counts = torch.tensor(request.attrs["expert_tokens"])
@@ -3988,7 +4163,8 @@ def moonlight_phase(torch, wrappers: dict, card: str) -> None:
     surplus = replays + captures - steps
     emit("moonlight", run="phase_runner_800", card=card, wall_s=wall, decode_s=out["decode_s"],
          decode_steps=steps, graph_captures=captures, graph_replays=replays, launches=launches,
-         replayed_launches={"l1": o.num_layers * replays, "x1": o.num_moe_layers * replays},
+         replayed_launches={"l1": o.num_layers * replays, "x1": o.num_moe_layers * replays,
+                            "gemv": gemv_a_step * replays},
          expert_tokens_per_layer=counts.sum(dim=1).tolist()[:3],
          faces=int(out["coords"].shape[1]), worst=worst,
          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -4014,7 +4190,7 @@ def moonlight_phase(torch, wrappers: dict, card: str) -> None:
         raise AssertionError(f"moonlight: {failures}")
 
 
-PHASES = ("add_ln", "k4_check", "k1_check", "k23_check", "graph_replay", "device_length", "k1_time",
+PHASES = ("add_ln", "gemv", "k4_check", "k1_check", "k23_check", "graph_replay", "device_length", "k1_time",
           "fast_time", "k5_check", "k5_replay", "k5_time", "probe_check", "probe_time",
           "measurement_path", "main_path", "graph_loop", "agreement", "floor", "serving",
           "train", "checkpoint", "warm_start", "parallel", "parallel_nccl", "recon", "diffusion",
@@ -4055,6 +4231,7 @@ def main(argv=None) -> int:
     from meshanything_tpu_torch.ops import add_layer_norm as aln
     from meshanything_tpu_torch.ops import decode_attention as da
     from meshanything_tpu_torch.ops import experts as ex
+    from meshanything_tpu_torch.ops import gemv as gv
     from meshanything_tpu_torch.ops import k1_probe as kp
     from meshanything_tpu_torch.ops import latent_attention as la
     from meshanything_tpu_torch.ops import megakernel as mk
@@ -4096,6 +4273,10 @@ def main(argv=None) -> int:
         worst["add_ln"] = check_add_ln(torch, aln)
         times["add_ln"] = time_add_ln(torch, aln, card)
     tick("add_ln")
+    if "gemv" in only:
+        worst["gemv"] = check_gemv(torch, gv)
+        times["gemv"] = time_gemv(torch, gv, card)
+    tick("gemv")
     if "k4_check" in only:
         k4_worst = check_k4(torch, da)
         worst.update(k4=k4_worst["tile_split"], k4_window=k4_worst["window"],
@@ -4145,7 +4326,8 @@ def main(argv=None) -> int:
                 "k3": da.decode_attention_int4, "k4": da.decode_attention_mq,
                 "k5": mk.decode_step_megakernel, "t1": pr.stream, "t2": pr.stream_rot,
                 "t3": pr.dual_stream, "t4": kp.k1_probe, "t5": pr.scale_shift,
-                "aln": aln.add_layer_norm, "l1": la.latent_attention, "x1": ex.routed_experts}
+                "aln": aln.add_layer_norm, "l1": la.latent_attention, "x1": ex.routed_experts,
+                "gemv": gv.gemv}
     if "measurement_path" in only:
         probe_launches = drive_measurement_path(torch, wrappers)
     tick("measurement_path")
@@ -4368,6 +4550,18 @@ def kernels_line(runs: list, times: dict, probe_times: dict, probe_launches: dic
         "bound_by": t[1]["bound_by"], "library_ms": t[1]["library_ms"],
         "ms_b16": t[16]["ms"], "plain_ms_b16": t[16]["plain_ms"],
         "bound_ms_b16": t[16]["bound_ms"], "library_ms_b16": t[16]["library_ms"]})
+    t = times["gemv"]
+    # the main path's launches (with the serving and checkpoint runs'), timed over OPT-350M's
+    # step of 98 products at 1 and 16 rows
+    kernels.append({
+        "name": "gemv", "route": "cuda", "source": src + "gemv.cu", "replaces": None,
+        "launches": launches["gemv"],
+        "replayed_launches": sum(r["replayed_launches_gemv"] or 0 for r in runs),
+        "max_err_over_plain": worst["gemv"], "products": 4 * L + 2,
+        **{f"{field}{suffix}": t[("opt_step", rows)][field]
+           for rows, suffix in ((1, ""), (16, "_b16"))
+           for field in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "bytes"})
     kernels += probe_kernel_entries(probe_times, probe_launches, worst)
     data_sheet_gbs = HBM_BYTES_PER_S / 1e9
     for entry in kernels:

@@ -91,6 +91,12 @@ __global__ void __launch_bounds__(1024)
     add_layer_norm_kernel(const T* __restrict__ x, const T* __restrict__ y,
                           const T* __restrict__ weight, const T* __restrict__ bias,
                           T* __restrict__ out, int d, float eps) {
+  // A kernel launched after this one as a programmatic dependent (the
+  // decode step's products, csrc/gemv.cu) may start now: it copies its
+  // weights, which this kernel does not write, and waits for this grid to
+  // finish before it reads anything else. Without such a dependent it is a
+  // no-op.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   constexpr int kLanes = Lanes<T>::n;
   __shared__ float sum_part[kMaxWarps];
   __shared__ float sq_part[kMaxWarps];

@@ -50,15 +50,17 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
-def lin(x: torch.Tensor, m: nn.Linear) -> torch.Tensor:
-    return linear(x, m.weight, m.bias)
+def lin(x: torch.Tensor, m: nn.Linear, relu: bool = False) -> torch.Tensor:
+    y = linear(x, m.weight, m.bias)
+    return F.relu(y) if relu else y
 
 
-def col_lin(x: torch.Tensor, m, group, lin_e=lin) -> torch.Tensor:
+def col_lin(x: torch.Tensor, m, group, lin_e=lin, relu: bool = False) -> torch.Tensor:
     """A column-parallel linear (``m`` holds the rank's output features):
-    ``lin_e(x, m)``, and under a model group x's grad summed over it in
-    backward (``copy_to_model``)."""
-    return lin_e(copy_to_model(x, group), m)
+    ``lin_e(x, m, relu=relu)`` (a ReLU acts on each output feature alone,
+    so it stays on the rank), and under a model group x's grad summed over
+    it in backward (``copy_to_model``)."""
+    return lin_e(copy_to_model(x, group), m, relu=relu)
 
 
 def row_lin(x: torch.Tensor, m, group, lin_e=lin) -> torch.Tensor:

@@ -45,7 +45,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from meshanything_tpu_torch.config import ShapeOPTConfig
-from meshanything_tpu_torch.models.layers import col_lin, lin
+from meshanything_tpu_torch.models.layers import col_lin
 from meshanything_tpu_torch.models.shape_opt import (
     CAPTURE_COUNTERS,
     Cache,
@@ -166,6 +166,7 @@ def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
     ``max_accept`` caps the tokens a row accepts in the forward. It runs
     without grad, as ``step_body`` does."""
     lin_e = lin_dispatch(wq_layers is not None)
+    lin_a = lin_dispatch(False)     # the codebook projection and lm_head, never W8A8
     b, w = state.window.shape
     dtype = p.cond_embed.dtype
     hd = cfg.head_dim
@@ -174,7 +175,7 @@ def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
 
     ids = state.window
     gen_idx = (state.steps - 1)[:, None] + idx_w                       # (B, W)
-    x = embed_tokens(p, cfg, ids).to(dtype)
+    x = embed_tokens(p, cfg, ids, lin_a).to(dtype)
     x = x + p.face_positions[face_phase_ids(ids, gen_idx, cfg.face_per_token)].to(dtype)
     x = x + p.cond_embed[1].to(dtype)
     x = x + p.embed_positions[cfg.cond_length + gen_idx + cfg.pos_offset].to(dtype)
@@ -192,7 +193,7 @@ def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
         x = layer.after_attention(x, o.reshape(b, w, h * hd), mats, lin_e, add_layer_norm)
     _append_window(state, rows, write_start)
 
-    logits = lin(x, p.lm_head).float()                                  # (B, W, V)
+    logits = lin_a(x, p.lm_head).float()                                # (B, W, V)
     preds = torch.argmax(logits, dim=-1)
     if sampling:
         emitted, n_acc = _speculative_accept(state.generator, logits, state.window, top_k, top_p)

@@ -63,6 +63,7 @@ from meshanything_tpu_torch.config import MoonlightConfig
 from meshanything_tpu_torch.models import shape_opt as opt_mod
 from meshanything_tpu_torch.models.layers import attention, lin
 from meshanything_tpu_torch.ops import experts as experts_op
+from meshanything_tpu_torch.ops import gemv as gemv_op
 from meshanything_tpu_torch.ops import latent_attention as latent_op
 from meshanything_tpu_torch.ops.experts import routed_experts
 from meshanything_tpu_torch.ops.kvcache import padded_length
@@ -73,15 +74,19 @@ from meshanything_tpu_torch.runtime import decode_graph
 
 # the launch counts a decode graph's ``capture`` span records
 # (decode_graph.StepGraph): calls of the latent kernel (one a layer) and of
-# the expert kernel (one a mixture-of-experts layer), two launches each
+# the expert kernel (one a mixture-of-experts layer), two launches each, and
+# the few-row product kernel's (q, latent and output projections, the dense
+# MLP, the codebook projection, lm_head)
 CAPTURE_COUNTERS = {"mla": lambda: latent_op.latent_attention.launches,
-                    "moe": lambda: experts_op.routed_experts.launches}
+                    "moe": lambda: experts_op.routed_experts.launches,
+                    "gemv": lambda: gemv_op.gemv.launches}
 LIBRARIES = ("latent_attention", "experts")    # csrc/<name>.cu a decode launches
 
 
 def libraries(o: MoonlightConfig, attn: str, lookahead, dtype: torch.dtype) -> tuple:
-    """The kernel libraries a decode launches: L1 and X1, whatever the tier."""
-    return LIBRARIES
+    """The kernel libraries a decode launches: L1 and X1, whatever the tier,
+    and in bf16 the few-row product kernel."""
+    return LIBRARIES + (("gemv",) if dtype == torch.bfloat16 else ())
 
 
 def cache_bytes(o: MoonlightConfig, batch: int, s_max: int, int8: bool = False,
@@ -496,8 +501,9 @@ def step_body(p: MoonlightDecoder, cfg: MoonlightConfig, state: MoonlightState, 
     gen_index = state.step_t - 1
     dtype = p.cond_embed.dtype
     lin_e = lin_dispatch(wq_layers is not None)
+    lin_a = lin_dispatch(False)     # the codebook projection and lm_head, never W8A8
     write_pos = (cfg.cond_length + gen_index).reshape(1)
-    x = opt_mod.embed_tokens(p, cfg, ids).to(dtype)
+    x = opt_mod.embed_tokens(p, cfg, ids, lin_a).to(dtype)
     x = x + p.face_positions[opt_mod.face_phase_ids(ids, gen_index, cfg.face_per_token)].to(dtype)
     x = x + p.cond_embed[1].to(dtype)
     rot = rope_table(cfg, x.device).index_select(0, write_pos)
@@ -521,7 +527,7 @@ def step_body(p: MoonlightDecoder, cfg: MoonlightConfig, state: MoonlightState, 
         if wq_layers is not None:
             y = y + mlp(h, wq_layers[i].mlp, lin_e).float()
         x = x + y.to(dtype)
-    logits = lin(rms_norm(x, p.norm), p.lm_head).float()
+    logits = lin_a(rms_norm(x, p.norm), p.lm_head).float()
     opt_mod.advance(cfg, state, logits, sampling=sampling, top_k=top_k, top_p=top_p,
                     temperature=temperature, early_exit=early_exit)
     return logits

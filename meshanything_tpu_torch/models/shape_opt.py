@@ -29,7 +29,11 @@ calls the attention kernel over exactly ``write_pos + 1`` rows:
 
 Each layer's two residual adds and post-LNs (``OPTLayer.after_attention``)
 are one kernel each in the decode step (``ops.add_layer_norm``, which has
-no backward); the prefill and ``forward_full`` keep ``ln(x + y)``.
+no backward); the prefill and ``forward_full`` keep ``ln(x + y)``. The
+decode step's layer matrices, codebook projection and lm_head go through
+``ops.wquant.lin_dispatch``, whose ``nn.Linear`` entry (``ops.gemv.lin``)
+runs a product of 1 to 16 bf16 rows as one kernel with the bias and fc1's
+ReLU in its epilogue, and any other through ``layers.linear``.
 
 wq=True runs the four per-layer matrices of the decode loop as int8 W8A8
 (``ops/wquant.py``); prefill, embeddings and lm_head stay in the
@@ -81,6 +85,7 @@ from torch.utils.checkpoint import checkpoint
 
 from meshanything_tpu_torch.config import ShapeOPTConfig
 from meshanything_tpu_torch.models.layers import attention, col_lin, lin, row_lin
+from meshanything_tpu_torch.ops import gemv as gemv_op
 from meshanything_tpu_torch.ops.add_layer_norm import add_layer_norm, add_layer_norm_reference
 from meshanything_tpu_torch.ops.decode_attention import (
     decode_attention,
@@ -106,8 +111,11 @@ from meshanything_tpu_torch.runtime import decode_graph, profiling
 
 ATTN_MODES = ("pallas", "pallas_int8", "pallas_int4", "megakernel")
 # the launch counts a decode graph's ``capture`` span records (decode_graph.StepGraph):
-# the residual add and post-LN kernel's, two a layer in a step or a window forward
-CAPTURE_COUNTERS = {"add_ln": lambda: add_layer_norm.launches}
+# the residual add and post-LN kernel's, two a layer in a step or a window forward,
+# and the few-row product kernel's where it engages: four a layer, the codebook
+# projection's and lm_head's
+CAPTURE_COUNTERS = {"add_ln": lambda: add_layer_norm.launches,
+                    "gemv": lambda: gemv_op.gemv.launches}
 # a cache: one (2, L, B, S, H*D) tensor, or (values, scales) when quantized
 Cache = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -131,14 +139,15 @@ class OPTLayer(nn.Module):
         """Out projection, residual, post-LN, ReLU MLP, residual, post-LN
         (x is the layer input, o the merged attention heads). ``mats``
         holds the out/fc1/fc2 matrices (default: this layer's), applied
-        with ``lin_e`` (``ops.wquant.lin_dispatch``). ``add_ln(x, y, m)``
+        with ``lin_e`` (``ops.wquant.lin_dispatch``), which also applies
+        fc1's ReLU (the decode step's kernel in its epilogue). ``add_ln(x, y, m)``
         is each residual add and post-LN, ``ln(x + y, m)``: the decode
         step passes the kernel (``ops.add_layer_norm``), which has no
         backward."""
         mats = self if mats is None else mats
         g = self.tp_group
         x = add_ln(x, row_lin(o.to(x.dtype), mats.out, g, lin_e), self.ln_attn)
-        return add_ln(x, row_lin(F.relu(col_lin(x, mats.fc1, g, lin_e)), mats.fc2, g, lin_e),
+        return add_ln(x, row_lin(col_lin(x, mats.fc1, g, lin_e, relu=True), mats.fc2, g, lin_e),
                       self.ln_ffn)
 
 
@@ -163,13 +172,15 @@ class ShapeOPT(nn.Module):
 # embedding
 
 
-def embed_tokens(p: ShapeOPT, cfg: ShapeOPTConfig, ids: torch.Tensor) -> torch.Tensor:
+def embed_tokens(p: ShapeOPT, cfg: ShapeOPTConfig, ids: torch.Tensor,
+                 lin_e=lin) -> torch.Tensor:
     """Hybrid embedding (shape_opt.py:237-245 of the reference): special
     ids {0,1,2} hit extra_embeds, the rest project codebook[id-3] through
-    input_layer. Returns the parameters' dtype."""
+    input_layer (with ``lin_e``: the decode steps pass their entry).
+    Returns the parameters' dtype."""
     special = p.extra_embeds[ids.clamp(0, 2)]
     code = p.codebook[(ids - 3).clamp(0, cfg.codebook_size - 1)]
-    projected = lin(code.to(special.dtype), p.input_layer)
+    projected = lin_e(code.to(special.dtype), p.input_layer)
     return torch.where((ids < 3)[..., None], special, projected)
 
 
@@ -486,10 +497,11 @@ def step_body(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
     dtype = p.cond_embed.dtype
     hd = cfg.head_dim
     lin_e = lin_dispatch(wq_layers is not None)
+    lin_a = lin_dispatch(False)     # the codebook projection and lm_head, never W8A8
     # the fed token was generated at gen_index and sits at absolute
     # position cond_length + gen_index
     write_pos = (cfg.cond_length + gen_index).reshape(1)
-    x = embed_tokens(p, cfg, ids).to(dtype)
+    x = embed_tokens(p, cfg, ids, lin_a).to(dtype)
     x = x + p.face_positions[face_phase_ids(ids, gen_index, cfg.face_per_token)].to(dtype)
     x = x + p.cond_embed[1].to(dtype)
     x = x + p.embed_positions.index_select(0, write_pos + cfg.pos_offset).to(dtype)
@@ -507,7 +519,7 @@ def step_body(p: ShapeOPT, cfg: ShapeOPTConfig, state: DecodeState, *,
             o = _step_attention(state, layer_idx, write_pos, cur_len,
                                 q.reshape(b, h, hd).contiguous(), k, v, layer.tp_group)
             x = layer.after_attention(x, o.reshape(b, h * hd), mats, lin_e, add_layer_norm)
-    logits = lin(x, p.lm_head).float()   # keeps the activation dtype's rounding
+    logits = lin_a(x, p.lm_head).float()   # keeps the activation dtype's rounding
     advance(cfg, state, logits, sampling=sampling, top_k=top_k, top_p=top_p,
             temperature=temperature, early_exit=early_exit)
     return logits

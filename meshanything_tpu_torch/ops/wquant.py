@@ -35,7 +35,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from meshanything_tpu_torch.models.layers import lin
+from meshanything_tpu_torch.ops import gemv
 from meshanything_tpu_torch.parallel.collectives import all_reduce_max, all_reduce_sum
 from meshanything_tpu_torch.parallel.mesh import opt_layer_specs
 
@@ -126,10 +126,14 @@ def quantize_opt_layers(layers) -> List[QuantizedLayer]:
                              for name in QuantizedLayer._fields)) for layer in layers]
 
 
+def _lin_w8a8(x: torch.Tensor, e: QuantizedLinear, relu: bool = False) -> torch.Tensor:
+    y = linear_w8a8(x, e.wq, e.scale, e.bias)
+    return torch.relu(y) if relu else y
+
+
 def lin_dispatch(wq: bool) -> Callable:
-    """lin(x, entry) for ``nn.Linear`` entries or, with ``wq``,
+    """lin(x, entry, relu=False) for ``nn.Linear`` entries or, with ``wq``,
     ``QuantizedLinear`` ones: the one switch of the decode and lookahead
-    layer bodies."""
-    if wq:
-        return lambda x, e: linear_w8a8(x, e.wq, e.scale, e.bias)
-    return lin
+    layer bodies. An ``nn.Linear`` goes through ``ops/gemv.py::lin``: the
+    hand-written kernel at 1 to 16 bf16 rows, ``layers.linear`` otherwise."""
+    return _lin_w8a8 if wq else gemv.lin

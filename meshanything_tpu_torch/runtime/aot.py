@@ -35,18 +35,21 @@ def libraries_for(attn: str, lookahead: "int | str", dtype: torch.dtype,
     tier launches: K1 (exact), K2/K3 (int8/int4 caches), K4 (any window:
     the tensor-core file or the f32 one, as ``mq_kernel_for`` routes the
     cache and query dtypes) or K5 (``attn="megakernel"``), and, beside
-    each but K5, the residual add and post-LN (``add_layer_norm``)."""
+    each but K5, the residual add and post-LN (``add_layer_norm``); in
+    bf16 also the few-row product kernel (``gemv``: the layer matrices,
+    the codebook projection and lm_head; beside K5 the last two)."""
     from meshanything_tpu_torch.ops.decode_attention import mq_kernel_for
 
+    products = ("gemv",) if dtype == torch.bfloat16 else ()
     if attn == "megakernel":
-        return ("megakernel",)
+        return ("megakernel", *products)
     if lookahead:
         cache = {"pallas_int8": torch.int8, "pallas_int4": torch.int32}.get(attn, dtype)
         route = mq_kernel_for(cache, head_dim, dtype)
         attention = "decode_attention_window" if route != "tile_split" else "decode_attention_fast"
     else:
         attention = "decode_attention" if attn == "pallas" else "decode_attention_quant"
-    return (attention, "add_layer_norm")
+    return (attention, "add_layer_norm", *products)
 
 
 def build(names: Sequence[str]) -> list:

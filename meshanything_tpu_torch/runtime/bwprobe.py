@@ -178,6 +178,7 @@ def exact_floor_seconds(cfg: MeshAnythingConfig, bw_gbs: float, batch: int = 1,
     return total / (bw_gbs * 1e9)
 
 
+@torch.no_grad()      # restores the caller's grad mode on return
 def main(argv=None) -> int:
     from meshanything_tpu_torch.tools.build_canary import canary, resolve_device
 
@@ -185,7 +186,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     device = resolve_device(args.device, "bwprobe")
-    torch.set_grad_enabled(False)
     s = 1.0 if device.type == "cuda" else 1 / 256   # the CPU rehearses at a small size
     first = canary(device)     # the build-and-launch route works before anything is measured
     card = first["card"]

@@ -31,6 +31,8 @@ import argparse
 import json
 import sys
 
+import torch
+
 WIDTH = 1024   # the 350M model's row: 16 heads x 64
 N_ITER = 8
 
@@ -43,6 +45,7 @@ def integer_rows(torch, rows: int, dtype, device, seed: int):
     return x
 
 
+@torch.no_grad()      # restores the caller's grad mode on return
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("gib", nargs="?", type=float, default=None,
@@ -52,14 +55,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
-    import torch
-
     from meshanything_tpu_torch.ops import probes
     from meshanything_tpu_torch.runtime.bwprobe import time_loop
     from meshanything_tpu_torch.tools.build_canary import canary, resolve_device
 
     device = resolve_device(args.device, "dma_wire_probe")
-    torch.set_grad_enabled(False)
     first = canary(device)
     card = first["card"]
     print(json.dumps(first), flush=True)

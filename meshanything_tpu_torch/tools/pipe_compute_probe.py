@@ -31,9 +31,12 @@ import argparse
 import json
 import sys
 
+import torch
+
 N_CALLS = 800
 
 
+@torch.no_grad()      # restores the caller's grad mode on return
 def main(argv=None) -> int:
     from meshanything_tpu_torch.ops.k1_probe import K1_TILE, MODES, k1_probe
 
@@ -46,14 +49,11 @@ def main(argv=None) -> int:
     if unknown:
         ap.error(f"unknown modes {unknown}; the probe has {MODES}")
 
-    import torch
-
     from meshanything_tpu_torch.ops.decode_attention import decode_attention
     from meshanything_tpu_torch.runtime.bwprobe import time_loop
     from meshanything_tpu_torch.tools.build_canary import canary, resolve_device
 
     device = resolve_device(args.device, "pipe_compute_probe")
-    torch.set_grad_enabled(False)
     first = canary(device)
     card = first["card"]
     print(json.dumps(first), flush=True)

@@ -163,9 +163,11 @@ def test_compile_cache_names_the_build_directory(tmp_path, fake_toolchain, monke
 def test_libraries_for_each_tier(attn, lookahead, dtype, head_dim, want):
     """The libraries ``precompile`` builds are the ones the tier's kernel
     wrappers load (K4's by ``mq_kernel_for``'s routing), with the residual
-    add and post-LN kernel in every tier whose step runs it (all but K5)."""
+    add and post-LN kernel in every tier whose step runs it (all but K5),
+    and the few-row product kernel in every bf16 tier."""
     fused = () if attn == "megakernel" else ("add_layer_norm",)
-    assert aot.libraries_for(attn, lookahead, dtype, head_dim) == (want, *fused)
+    products = ("gemv",) if dtype == torch.bfloat16 else ()
+    assert aot.libraries_for(attn, lookahead, dtype, head_dim) == (want, *fused, *products)
 
 
 # ---------------------------------------------------------------------------
