@@ -1242,7 +1242,7 @@ def time_k5(torch, mk, da, card: str) -> dict:
     """Phase 7 (times): one decode step's layer stack on seeded random bf16
     layers and a bf16 cache, as K5, as its plain version, and as the
     exact tier's eager loop of 24 layers (linear, K/V row write, K1,
-    after_attention, as ``shape_opt.decode_step`` runs them), each timed
+    after_attention, as ``shape_opt.step_body`` runs them), each timed
     with CUDA events around launches from Python, in the order plain, K5,
     K1 loop, K1 loop, K5, plain. Returns {(batch, cur_len): times}."""
     from meshanything_tpu_torch.config import ShapeOPTConfig
@@ -1957,11 +1957,11 @@ def segment_steps(kernel: str) -> int:
     loop's ``sync_every``, the window loop's ``CHECK_EVERY``."""
     import inspect
 
-    from meshanything_tpu_torch.models import lookahead, shape_opt
+    from meshanything_tpu_torch.models import decoding, lookahead
 
     if kernel == "k4":
         return lookahead.CHECK_EVERY
-    return inspect.signature(shape_opt.decode_loop).parameters["sync_every"].default
+    return inspect.signature(decoding.decode_loop).parameters["sync_every"].default
 
 
 # the CLI runs that phase graph_loop decodes again eagerly: every tier once (exact_meshes
@@ -2038,6 +2038,7 @@ def check_step_replays(torch, card: str, replays: int = 20, traced: int = 24) ->
     ``traced`` more replays: kernels a step and the device's busy share
     (kernel time over the replays' time between CUDA events)."""
     from meshanything_tpu_torch.config import MeshAnythingConfig
+    from meshanything_tpu_torch.models import decoding
     from meshanything_tpu_torch.models import shape_opt as opt
     from meshanything_tpu_torch.runtime.checkpoint import init_random_params
     from meshanything_tpu_torch.runtime.decode_graph import StepGraph
@@ -2054,11 +2055,11 @@ def check_step_replays(torch, card: str, replays: int = 20, traced: int = 24) ->
                        for _ in range(2))
     twins = all(torch.equal(a, b) for a, b in zip(_state_tensors(eager),
                                                   _state_tensors(replayed)))
-    opt.decode_step(model.opt, cfg.opt, eager)      # the twin of the capture's warm-up step
+    decoding.decode_step(model.opt, cfg.opt, eager)      # the twin of the capture's warm-up step
     graph = StepGraph(lambda: opt.step_body(model.opt, cfg.opt, replayed), torch.device("cuda"))
     same = []
     for _ in range(replays):
-        opt.decode_step(model.opt, cfg.opt, eager)
+        decoding.decode_step(model.opt, cfg.opt, eager)
         graph.replay(1)
         same.append(all(torch.equal(a, b) for a, b in zip(_state_tensors(eager),
                                                           _state_tensors(replayed))))
@@ -2098,6 +2099,7 @@ def check_sampled_replays(torch) -> bool:
     seed. Returns ``sampled_eager``: true where the installed torch cannot
     register a generator and the sampled decode stays eager."""
     from meshanything_tpu_torch.config import small_test_config
+    from meshanything_tpu_torch.models import decoding
     from meshanything_tpu_torch.models import lookahead as la
     from meshanything_tpu_torch.models import shape_opt as opt
     from meshanything_tpu_torch.runtime import decode_graph
@@ -2117,8 +2119,8 @@ def check_sampled_replays(torch) -> bool:
             if loop == "single_token":
                 state = opt.init_decode_state(model.opt, cfg.opt, cond, max_new_tokens=gl,
                                               bucket=16, sampling=True, generator=generator)
-                state = opt.decode_loop(model.opt, cfg.opt, state, max_new_tokens=gl,
-                                        sampling=True, graph=graph)
+                state = decoding.decode_loop(model.opt, cfg.opt, state, max_new_tokens=gl,
+                                             sampling=True, graph=graph)
                 captured = state.graph is not None
             else:
                 state = la.init_lookahead_state(model.opt, cfg.opt, cond, max_new_tokens=gl,
@@ -2662,7 +2664,7 @@ def train_phase(torch, wrappers: dict, card: str) -> dict:
         # the graph replays of each decode apart: plain greedy's graphs hold K1,
         # lookahead's the bf16 K4 (the calls run one after another on the host)
         replays = {"k1": 0, "k4_window": 0}
-        plain_generate, lookahead_generate = sg.sopt.generate, sg.generate_lookahead
+        plain_generate, lookahead_generate = sg.decoding.generate, sg.generate_lookahead
 
         def counting(fn, key):
             def call(*args, **kwargs):
@@ -2674,7 +2676,7 @@ def train_phase(torch, wrappers: dict, card: str) -> dict:
             return call
 
         _zero_counts(wrappers)
-        sg.sopt.generate = counting(plain_generate, "k1")
+        sg.decoding.generate = counting(plain_generate, "k1")
         sg.generate_lookahead = counting(lookahead_generate, "k4_window")
         try:
             with torch.no_grad():
@@ -2682,7 +2684,7 @@ def train_phase(torch, wrappers: dict, card: str) -> dict:
                     steps=TRAIN_STEPS, batch=TRAIN_BATCH, n_max_triangles=TRAIN_FACES,
                     lr=TRAIN_LR, window=8, seed=0, device=dev)
         finally:
-            sg.sopt.generate, sg.generate_lookahead = plain_generate, lookahead_generate
+            sg.decoding.generate, sg.generate_lookahead = plain_generate, lookahead_generate
             if before is None:
                 os.environ.pop("GRAMMAR_PROBE_CACHE")
             else:

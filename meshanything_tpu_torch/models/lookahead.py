@@ -45,22 +45,20 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from meshanything_tpu_torch.config import ShapeOPTConfig
-from meshanything_tpu_torch.models.layers import col_lin
-from meshanything_tpu_torch.models.shape_opt import (
-    CAPTURE_COUNTERS,
+from meshanything_tpu_torch.models.decoding import (
     Cache,
-    ShapeOPT,
     check_capture,
     check_prompt,
-    embed_tokens,
-    face_phase_ids,
-    prefill_cache,
+    embed_ids,
+    first_tokens,
     resolve_attn,
 )
+from meshanything_tpu_torch.models.layers import col_lin
+from meshanything_tpu_torch.models.shape_opt import CAPTURE_COUNTERS, ShapeOPT, prefill_cache
 from meshanything_tpu_torch.ops.add_layer_norm import add_layer_norm
 from meshanything_tpu_torch.ops.decode_attention import decode_attention_mq
 from meshanything_tpu_torch.ops.kvcache import QUANTIZED, quantize_rows_for
-from meshanything_tpu_torch.ops.sampling import sample_token, top_k_filter, top_p_filter
+from meshanything_tpu_torch.ops.sampling import top_k_filter, top_p_filter
 from meshanything_tpu_torch.ops.wquant import lin_dispatch, quantize_opt_layers
 from meshanything_tpu_torch.runtime import decode_graph, profiling
 
@@ -175,9 +173,7 @@ def _window_step(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *,
 
     ids = state.window
     gen_idx = (state.steps - 1)[:, None] + idx_w                       # (B, W)
-    x = embed_tokens(p, cfg, ids, lin_a).to(dtype)
-    x = x + p.face_positions[face_phase_ids(ids, gen_idx, cfg.face_per_token)].to(dtype)
-    x = x + p.cond_embed[1].to(dtype)
+    x = embed_ids(p, cfg, ids, gen_idx, dtype, lin_a)
     x = x + p.embed_positions[cfg.cond_length + gen_idx + cfg.pos_offset].to(dtype)
     write_start = cfg.cond_length + state.steps - 1                    # (B,)
     base = write_start.to(torch.int32)          # once a forward, for the 24 calls of K4
@@ -283,19 +279,13 @@ def init_lookahead_state(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Te
         raise ValueError(f"buf_window={bw} must be >= window={window}")
     b, c, _ = cond_embeds.shape
     dev = cond_embeds.device
-    p_len = check_prompt(prompt_ids, max_new_tokens)
-    if prompt_ids is not None:
-        prompt_ids = prompt_ids.to(device=dev, dtype=torch.int64)
+    prompt_ids, p_len = check_prompt(prompt_ids, max_new_tokens, dev)
     if into is not None and into.attn != attn:
         raise ValueError(f"a state of attn={into.attn!r} refilled for attn={attn!r}")
     logits0, kv = prefill_cache(p, cfg, cond_embeds, attn, c + max_new_tokens + bw, bucket,
                                 prompt_ids, kv=None if into is None else into.kv)
-    first = (sample_token(logits0, sampling=True, top_k=top_k, top_p=top_p, generator=generator)
-             if sampling else torch.argmax(logits0, dim=-1))
-    tokens = torch.full((b, max_new_tokens + bw), cfg.eos_token_id, dtype=torch.int64, device=dev)
-    if p_len:
-        tokens[:, :p_len] = prompt_ids
-    tokens[:, p_len] = first
+    first, tokens = first_tokens(cfg, logits0, max_new_tokens + bw, prompt_ids,
+                                 sampling=sampling, top_k=top_k, top_p=top_p, generator=generator)
     win = torch.zeros((b, window), dtype=torch.int64, device=dev)
     win[:, 0] = first
     state = LookaheadState(steps=torch.full((b,), p_len + 1, dtype=torch.int64, device=dev),
@@ -332,7 +322,7 @@ def lookahead_segment(p: ShapeOPT, cfg: ShapeOPTConfig, state: LookaheadState, *
     register with a graph runs eagerly, with a warning.
 
     The forwards between two reads are a ``segment`` span
-    (``runtime/profiling.py``), as ``shape_opt.decode_segment`` records
+    (``runtime/profiling.py``), as ``decoding.decode_segment`` records
     one: ``pos`` its first forward, ``steps`` its forwards."""
     def forward():
         _window_step(p, cfg, state, max_new_tokens=max_new_tokens, wq_layers=wq_layers,
@@ -429,7 +419,7 @@ def generate_lookahead(p: ShapeOPT, cfg: ShapeOPTConfig, cond_embeds: torch.Tens
     step-by-step greedy stream. ``wq`` quantizes the layer matrices for
     the window forwards (the prefill runs on the originals).
     ``prompt_ids`` (B, P): continue from a token prefix (see
-    ``shape_opt.generate``), echoed at the front of the output.
+    ``decoding.generate``), echoed at the front of the output.
     ``max_accept`` caps the tokens a row accepts per forward, greedy only:
     a measurement knob that keeps the stream and lowers the acceptance.
     ``graph=False``: the eager loop on a card."""

@@ -16,24 +16,13 @@ import torch
 from torch import nn
 
 from meshanything_tpu_torch.config import MeshAnythingConfig
+from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.models import lookahead as la_mod
-from meshanything_tpu_torch.models import moonlight as moon_mod
 from meshanything_tpu_torch.models import nrd as nrd_mod
 from meshanything_tpu_torch.models import perceiver as per_mod
 from meshanything_tpu_torch.models import shape_opt as opt_mod
 from meshanything_tpu_torch.models.layers import lin
 from meshanything_tpu_torch.parallel.collectives import gather_rows
-
-
-def decoder_module(cfg: MeshAnythingConfig):
-    """The module of the configuration's shape decoder: ``shape_opt``
-    (OPT) or ``moonlight``. Each gives its ``Decoder`` (the weights),
-    ``init_decode_state``, ``decode_segment``, ``decode_loop`` and
-    ``generate``, and what the runner asks of it: ``check_tier`` (raises
-    for a tier it has not), ``libraries``, ``quantize_layers`` (``wq``),
-    ``cache_bytes``, ``prefill_elems`` and ``wq_sizes`` (the memory
-    budget)."""
-    return {"opt": opt_mod, "moonlight": moon_mod}[cfg.decoder]
 
 
 class MeshAnything(nn.Module):
@@ -46,7 +35,7 @@ class MeshAnything(nn.Module):
         super().__init__()
         f = {"device": device, "dtype": dtype}
         self.perceiver = per_mod.Perceiver(cfg.perceiver, **f)
-        self.opt = decoder_module(cfg).Decoder(cfg.opt, **f)
+        self.opt = decoding.family(cfg).Decoder(cfg.opt, **f)
         self.nrd = nrd_mod.NRD(cfg.nrd, **f)
         self.cond_head_proj = nn.Linear(cfg.opt.cond_dim, cfg.opt.hidden_size, **f)
         self.cond_proj = nn.Linear(cfg.opt.cond_dim * 2, cfg.opt.hidden_size, **f)
@@ -160,11 +149,11 @@ def generate(m: MeshAnything, cfg: MeshAnythingConfig, pc_normal: torch.Tensor, 
     point_feature, cond = encode(m, cfg, pc_normal)
     kw = dict(max_new_tokens=cfg.generate_length, sampling=sampling, generator=generator,
               bucket=bucket, attn=attn, wq=wq, prompt_ids=prompt_ids, graph=graph)
-    decoder_module(cfg).check_tier(attn, lookahead)
+    decoding.family(cfg).check_tier(attn, lookahead)
     if lookahead > 0:
         raw = la_mod.generate_lookahead(m.opt, cfg.opt, cond, window=lookahead, **kw)
     else:
-        raw = decoder_module(cfg).generate(m.opt, cfg.opt, cond, **kw)
+        raw = decoding.generate(m.opt, cfg.opt, cond, **kw)
     return GenerateOutput(detokenize(m, cfg, raw, point_feature), raw)
 
 

@@ -3,7 +3,7 @@
 autoregressive mesh-token decoder. The JAX package has no such decoder; it
 is the port's second one beside ``models/shape_opt.py``.
 
-  * MeshAnything's interface, as in ``shape_opt``: the hybrid token
+  * MeshAnything's interface (``models/decoding.py``): the hybrid token
     embedding (3 special rows, else the codebook row through
     ``input_layer``), the face-phase embedding, ``cond_embed[0]`` on the
     condition's rows and ``cond_embed[1]`` on the tokens' rows, an untied
@@ -40,7 +40,7 @@ K half, the latent kernel over the cache (``ops/latent_attention.py``),
 its output mapped back by the V half; its routed experts (and the shared
 ones as two more slots) are the expert kernel (``ops/experts.py``), which
 reads the chosen ids on the device. The step reads every position from
-``state.step_t`` on the device, so ``shape_opt.decode_segment`` replays it
+``state.step_t`` on the device, so ``decoding.decode_segment`` replays it
 as a CUDA graph on a card, as it does OPT's.
 
 Tiers: the exact bf16 tier alone (``attn="pallas"``, or "auto"). ``wq``
@@ -60,7 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from meshanything_tpu_torch.config import MoonlightConfig
-from meshanything_tpu_torch.models import shape_opt as opt_mod
+from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.models.layers import attention, lin
 from meshanything_tpu_torch.ops import experts as experts_op
 from meshanything_tpu_torch.ops import gemv as gemv_op
@@ -68,9 +68,7 @@ from meshanything_tpu_torch.ops import latent_attention as latent_op
 from meshanything_tpu_torch.ops.experts import routed_experts
 from meshanything_tpu_torch.ops.kvcache import padded_length
 from meshanything_tpu_torch.ops.latent_attention import latent_attention
-from meshanything_tpu_torch.ops.sampling import sample_token
 from meshanything_tpu_torch.ops.wquant import QuantizedLinear, _quantize_linear, lin_dispatch
-from meshanything_tpu_torch.runtime import decode_graph
 
 # the launch counts a decode graph's ``capture`` span records
 # (decode_graph.StepGraph): calls of the latent kernel (one a layer) and of
@@ -126,7 +124,7 @@ def wq_sizes(o: MoonlightConfig) -> tuple:
 def check_tier(attn: str = "pallas", lookahead=0) -> None:
     """Raise for what the Moonlight decoder does not have: any cache tier
     but the exact one, a lookahead window, the megakernel."""
-    if opt_mod.resolve_attn(attn) != "pallas":
+    if decoding.resolve_attn(attn) != "pallas":
         raise ValueError(f"attn={attn!r}: the moonlight decoder runs the exact tier alone "
                          "(its latent cache has no int8/int4 form and no megakernel)")
     if lookahead:
@@ -358,7 +356,7 @@ def prefill(p: MoonlightDecoder, cfg: MoonlightConfig, cond_embeds: torch.Tensor
     dtype = cond_embeds.dtype
     x = cond_embeds + p.cond_embed[0].to(dtype)
     if prompt_ids is not None:
-        x = torch.cat([x, opt_mod.embed_stream(p, cfg, prompt_ids, dtype)], dim=1)
+        x = torch.cat([x, decoding.embed_stream(p, cfg, prompt_ids, dtype)], dim=1)
     n = x.shape[1]
     rot = rope_table(cfg, x.device)[:n]
     for i, layer in enumerate(p.layers):
@@ -378,8 +376,8 @@ def prefill(p: MoonlightDecoder, cfg: MoonlightConfig, cond_embeds: torch.Tensor
 
 
 @dataclasses.dataclass
-class MoonlightState(opt_mod.DecodeState):
-    """``shape_opt.DecodeState`` with the latent cache (L, B, S, 576) as
+class MoonlightState(decoding.DecodeState):
+    """``decoding.DecodeState`` with the latent cache (L, B, S, 576) as
     ``kv``, the expert kernel's per-expert token counter and the routing
     record."""
     # (MoE layers, E) int32 on the device: the decode's tokens each expert took
@@ -401,15 +399,14 @@ def init_decode_state(p: MoonlightDecoder, cfg: MoonlightConfig, cond_embeds: to
                       generator: Optional[torch.Generator] = None, attn: str = "pallas",
                       prompt_ids: Optional[torch.Tensor] = None,
                       into: Optional[MoonlightState] = None) -> MoonlightState:
-    """``shape_opt.init_decode_state`` for this decoder: the latent cache
-    (S padded to ``bucket``, or ``into``'s), prefilled, and the first
-    token; ``into`` is refilled in place (``decode_graph.refill_state``)."""
+    """This decoder's decode state: the latent cache (S padded to
+    ``bucket``, or ``into``'s) and the routing record, prefilled, the
+    expert counter, and the first token; ``into`` is refilled in place
+    (``decode_graph.refill_state``)."""
     check_tier(attn)
     b, c, _ = cond_embeds.shape
-    p_len = opt_mod.check_prompt(prompt_ids, max_new_tokens)
     dev = cond_embeds.device
-    if prompt_ids is not None:
-        prompt_ids = prompt_ids.to(device=dev, dtype=torch.int64)
+    prompt_ids, p_len = decoding.check_prompt(prompt_ids, max_new_tokens, dev)
     if c + max_new_tokens > cfg.max_position_embeddings:
         raise ValueError(f"{c} condition rows and {max_new_tokens} tokens pass the decoder's "
                          f"{cfg.max_position_embeddings} positions")
@@ -419,19 +416,13 @@ def init_decode_state(p: MoonlightDecoder, cfg: MoonlightConfig, cond_embeds: to
         (cfg.num_moe_layers, b, cache.shape[2], cfg.num_experts_per_tok), dtype=torch.int32,
         device=dev)
     logits0 = prefill(p, cfg, cond_embeds, cache, prompt_ids, routes)
-    first = sample_token(logits0, sampling=sampling, top_k=top_k, top_p=top_p,
-                         temperature=temperature, generator=generator)
-    tokens = torch.full((b, max_new_tokens), cfg.eos_token_id, dtype=torch.int64, device=dev)
-    if p_len:
-        tokens[:, :p_len] = prompt_ids
-    tokens[:, p_len] = first
-    state = MoonlightState(
-        step=p_len + 1, step_t=torch.full((), p_len + 1, dtype=torch.int64, device=dev),
-        tokens=tokens, kv=cache, done=first == cfg.eos_token_id, last_token=first,
-        generator=generator, attn="pallas",
+    first, tokens = decoding.first_tokens(cfg, logits0, max_new_tokens, prompt_ids,
+                                          sampling=sampling, top_k=top_k, top_p=top_p,
+                                          temperature=temperature, generator=generator)
+    return MoonlightState.start(
+        cfg, first, tokens, cache, p_len, into, generator=generator, attn="pallas",
         expert_counts=torch.zeros((cfg.num_moe_layers, cfg.n_routed_experts), dtype=torch.int32,
                                   device=dev), routes=routes, latent=cfg.kv_lora_rank)
-    return state if into is None else decode_graph.refill_state(into, state)
 
 
 class QuantizedMLP(NamedTuple):
@@ -487,25 +478,21 @@ def _attention_step(layer: MoonlightLayer, cfg: MoonlightConfig, state: Moonligh
 
 @torch.no_grad()
 def step_body(p: MoonlightDecoder, cfg: MoonlightConfig, state: MoonlightState, *,
-              wq_layers: Optional[Sequence] = None, mega_layers=None, sampling: bool = False,
+              wq_layers: Optional[Sequence] = None, sampling: bool = False,
               top_k: int = 50, top_p: float = 0.95, temperature: float = 1.0,
               early_exit: bool = True) -> torch.Tensor:
     """One token for every row, every position read from ``state.step_t``
-    on the device (``shape_opt.step_body``'s contract: a CUDA graph can
-    capture it); returns the step's f32 logits (B, vocab). ``wq_layers``
-    (``quantize_layers``) runs the attention projections and the dense and
-    shared MLPs as W8A8."""
-    if mega_layers is not None:
-        raise ValueError("the moonlight decoder has no megakernel")
+    on the device (what ``decoding.decode_segment`` asks of a step: a CUDA
+    graph can capture it); returns the step's f32 logits (B, vocab).
+    ``wq_layers`` (``quantize_layers``) runs the attention projections and
+    the dense and shared MLPs as W8A8."""
     ids = state.last_token
     gen_index = state.step_t - 1
     dtype = p.cond_embed.dtype
     lin_e = lin_dispatch(wq_layers is not None)
     lin_a = lin_dispatch(False)     # the codebook projection and lm_head, never W8A8
     write_pos = (cfg.cond_length + gen_index).reshape(1)
-    x = opt_mod.embed_tokens(p, cfg, ids, lin_a).to(dtype)
-    x = x + p.face_positions[opt_mod.face_phase_ids(ids, gen_index, cfg.face_per_token)].to(dtype)
-    x = x + p.cond_embed[1].to(dtype)
+    x = decoding.embed_ids(p, cfg, ids, gen_index, dtype, lin_a)
     rot = rope_table(cfg, x.device).index_select(0, write_pos)
     cur_len = (write_pos[0] + 1).to(torch.int32)
     for i, layer in enumerate(p.layers):
@@ -528,49 +515,9 @@ def step_body(p: MoonlightDecoder, cfg: MoonlightConfig, state: MoonlightState, 
             y = y + mlp(h, wq_layers[i].mlp, lin_e).float()
         x = x + y.to(dtype)
     logits = lin_a(rms_norm(x, p.norm), p.lm_head).float()
-    opt_mod.advance(cfg, state, logits, sampling=sampling, top_k=top_k, top_p=top_p,
-                    temperature=temperature, early_exit=early_exit)
+    decoding.advance(cfg, state, logits, sampling=sampling, top_k=top_k, top_p=top_p,
+                     temperature=temperature, early_exit=early_exit)
     return logits
-
-
-def decode_loop(p: MoonlightDecoder, cfg: MoonlightConfig, state: MoonlightState, *,
-                max_new_tokens: int, sync_every: int = 32, wq: bool = False,
-                early_exit: bool = True, graph: bool = True,
-                wq_layers: Optional[Sequence] = None, **sample_kw) -> MoonlightState:
-    """``shape_opt.decode_loop`` for this decoder: segments of
-    ``sync_every`` steps (``shape_opt.decode_segment`` replaying this
-    decoder's ``step_body`` on a card), the int8 matrices quantized once
-    with ``wq`` unless given."""
-    if wq and wq_layers is None:
-        wq_layers = quantize_layers(p.layers)
-    while state.step < max_new_tokens:
-        until = min(state.step + sync_every, max_new_tokens)
-        state = decode_segment(p, cfg, state, max_new_tokens=max_new_tokens, until=until,
-                               early_exit=early_exit, wq_layers=wq_layers, graph=graph,
-                               **sample_kw)
-        if state.step < until:
-            break
-    return state
-
-
-def decode_segment(p: MoonlightDecoder, cfg: MoonlightConfig, state: MoonlightState,
-                   **kw) -> MoonlightState:
-    """``shape_opt.decode_segment`` with this decoder's step and counters."""
-    return opt_mod.decode_segment(p, cfg, state, body=step_body, counters=CAPTURE_COUNTERS, **kw)
-
-
-def generate(p: MoonlightDecoder, cfg: MoonlightConfig, cond_embeds: torch.Tensor, *,
-             max_new_tokens: int, sampling: bool = False, top_k: int = 50, top_p: float = 0.95,
-             temperature: float = 1.0, bucket: int = 512,
-             generator: Optional[torch.Generator] = None, attn: str = "pallas",
-             wq: bool = False, prompt_ids: Optional[torch.Tensor] = None,
-             graph: bool = True) -> torch.Tensor:
-    """``shape_opt.generate`` for this decoder -> (B, max_new_tokens) int64."""
-    kw = dict(sampling=sampling, top_k=top_k, top_p=top_p, temperature=temperature)
-    state = init_decode_state(p, cfg, cond_embeds, max_new_tokens=max_new_tokens, bucket=bucket,
-                              generator=generator, attn=attn, prompt_ids=prompt_ids, **kw)
-    return decode_loop(p, cfg, state, max_new_tokens=max_new_tokens, wq=wq, graph=graph,
-                       **kw).tokens
 
 
 Decoder = MoonlightDecoder

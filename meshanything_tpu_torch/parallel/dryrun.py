@@ -35,9 +35,9 @@ def _worker() -> None:
     import torch
 
     from meshanything_tpu_torch.config import small_test_config
+    from meshanything_tpu_torch.models import decoding
     from meshanything_tpu_torch.models import lookahead as la_mod
     from meshanything_tpu_torch.models import meshanything as ma
-    from meshanything_tpu_torch.models import shape_opt as opt_mod
     from meshanything_tpu_torch.parallel.collectives import gather_rows
     from meshanything_tpu_torch.parallel.mesh import create_mesh, gather_params, join
     from meshanything_tpu_torch.parallel.multihost import process_info
@@ -103,11 +103,12 @@ def _worker() -> None:
 
         def segmented(attn, rows):
             _, cond = ma.encode(trained, cfg, rows)
-            st = opt_mod.init_decode_state(trained.opt, cfg.opt, cond, max_new_tokens=gl,
-                                           bucket=BUCKET, attn=attn)
+            st = decoding.family(cfg).init_decode_state(trained.opt, cfg.opt, cond,
+                                                        max_new_tokens=gl, bucket=BUCKET,
+                                                        attn=attn)
             for until in bounds:
-                st = opt_mod.decode_segment(trained.opt, cfg.opt, st, max_new_tokens=gl,
-                                            until=until)
+                st = decoding.decode_segment(trained.opt, cfg.opt, st, max_new_tokens=gl,
+                                             until=until)
             return st.tokens
 
         def segmented_lookahead(attn, rows):

@@ -4,8 +4,9 @@ counterpart of the JAX package's device-resident ``while_loop`` segments
 ``models/lookahead.py::lookahead_segment``).
 
 A ``StepGraph`` captures one call of a function that updates a decode
-state's own tensors in place (a decode step of ``models/shape_opt.py`` or
-a window forward of ``models/lookahead.py``) into a
+state's own tensors in place (a decoder family's step, which
+``models/decoding.py`` drives, or a window forward of
+``models/lookahead.py``) into a
 ``torch.cuda.CUDAGraph``; ``replay(n)`` runs it n times, one host launch
 each. What the captured functions keep to: no host read of a device value
 (positions and lengths live in device tensors: K1-K3 read the live length

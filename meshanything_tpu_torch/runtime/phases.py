@@ -5,7 +5,7 @@ device-memory budget of a generation batch (``estimate_kv_bytes``,
 
 ``PhaseRunner`` is the object that the pipeline (``runtime/pipeline.py``),
 the micro-batcher (``runtime/batching.py``) and serving (``serving.py``)
-share. Its decode is the single-token loop (``models/shape_opt.py``) or,
+share. Its decode is the single-token loop (``models/decoding.py``) or,
 with ``lookahead`` (a window width, or "adaptive" for the 8/16 window
 controller of ``models/lookahead.py``), the Jacobi window loop, from the
 condition alone or from a prompt (mesh completion). On a card the decode
@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from meshanything_tpu_torch.config import MeshAnythingConfig
+from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.parallel.collectives import group_size
 from meshanything_tpu_torch.runtime import profiling
 
@@ -70,11 +71,9 @@ def estimate_kv_bytes(cfg: MeshAnythingConfig, batch: int, bucket: int = 512,
     extra_tokens: lookahead windows extend the cache by W slots. The
     quantized tiers' f32 row scales are not in it (``check_memory_budget``
     adds them)."""
-    from meshanything_tpu_torch.models.meshanything import decoder_module
-
     c = cfg.cond_length
     s_max = -(-(c + cfg.generate_length + extra_tokens) // bucket) * bucket
-    return decoder_module(cfg).cache_bytes(cfg.opt, batch, s_max, int8, int4)
+    return decoding.family(cfg).cache_bytes(cfg.opt, batch, s_max, int8, int4)
 
 
 def param_tree_bytes(model: torch.nn.Module) -> int:
@@ -127,9 +126,7 @@ def check_memory_budget(cfg: MeshAnythingConfig, batch: int, bucket: int = 512,
         if device is None:
             raise ValueError("check_memory_budget needs limit_bytes or a device")
         limit_bytes = device_limit_bytes(device)
-    from meshanything_tpu_torch.models.meshanything import decoder_module
-
-    o, decoder = cfg.opt, decoder_module(cfg)
+    o, decoder = cfg.opt, decoding.family(cfg)
     int8, int4 = attn == "pallas_int8", attn == "pallas_int4"
     kv = estimate_kv_bytes(cfg, batch, bucket, int8, extra_tokens, int4=int4)
     itemsize = torch.empty((), dtype=cfg.activation_dtype).element_size()
@@ -235,7 +232,6 @@ class PhaseRunner:
                  adaptive_windows: tuple = (8, 16), adaptive_check_iters: int = 64,
                  graph: bool = True, place: Optional[str] = None):
         from meshanything_tpu_torch.models import lookahead as la_mod
-        from meshanything_tpu_torch.models import shape_opt as opt_mod
 
         if not (lookahead == "adaptive" or (isinstance(lookahead, int) and lookahead >= 0)):
             raise ValueError(f"lookahead must be a window width or 'adaptive', not {lookahead!r}")
@@ -245,11 +241,12 @@ class PhaseRunner:
         self.model = model
         self.cfg = cfg
         self.bucket = bucket
-        self.attn = opt_mod.resolve_attn(attn)
-        self._decoder().check_tier(self.attn, lookahead)
+        self.attn = decoding.resolve_attn(attn)
+        self.family = decoding.family(cfg)      # the shape decoder's family
+        self.family.check_tier(self.attn, lookahead)
         if lookahead:
             la_mod.check_attn(self.attn)
-        opt_mod.check_wq(self.attn, wq)
+        decoding.check_wq(self.attn, wq)
         self.place = place
         self.early_exit = early_exit
         self.lookahead = lookahead
@@ -298,8 +295,7 @@ class PhaseRunner:
         if self.device.type != "cuda":
             return report
         cfg = self.cfg
-        names = self._decoder().libraries(cfg.opt, self.attn, self.lookahead,
-                                          cfg.activation_dtype)
+        names = self.family.libraries(cfg.opt, self.attn, self.lookahead, cfg.activation_dtype)
         loaded = set(_build._loaded)                 # loaded (or built) before this call
         libs = aot.build(names)
         report["libraries"] = [lib.path for lib in libs]
@@ -323,10 +319,10 @@ class PhaseRunner:
                                              wq_layers=self._wq(), until_iters=st.iters + 1,
                                              sampling=sampling, graph=self.graph)
             else:
-                self._decoder().decode_segment(self.model.opt, cfg.opt, state, max_new_tokens=gl,
-                                               until=state.step + 1, early_exit=self.early_exit,
-                                               wq_layers=self._wq(), sampling=sampling,
-                                               graph=self.graph)
+                decoding.decode_segment(self.model.opt, cfg.opt, state, max_new_tokens=gl,
+                                        until=state.step + 1, early_exit=self.early_exit,
+                                        wq_layers=self._wq(), sampling=sampling,
+                                        graph=self.graph)
             self._finish(kept, generator)
             stats = _graph_stats(_graphs_of(state), before)
         report.update(graph_captures=stats["graph_captures"], capture_s=stats["capture_s"])
@@ -337,18 +333,11 @@ class PhaseRunner:
     def _keeps(self) -> bool:
         return self.attn != "megakernel"
 
-    def _decoder(self):
-        """The module of the model's shape decoder (``shape_opt`` or
-        ``moonlight``): its init, segment and loop."""
-        from meshanything_tpu_torch.models.meshanything import decoder_module
-
-        return decoder_module(self.cfg)
-
     def _wq(self):
         """The int8 layer matrices, quantized once (the kept graphs read
         them)."""
         if self.wq and self._wq_layers is None:
-            self._wq_layers = self._decoder().quantize_layers(self.model.opt.layers)
+            self._wq_layers = self.family.quantize_layers(self.model.opt.layers)
         return self._wq_layers
 
     def _budget(self, batch: int, prompt_tokens: int, key: tuple) -> None:
@@ -404,7 +393,7 @@ class PhaseRunner:
                 bucket=self.bucket, attn=self.attn, sampling=sampling, generator=generator,
                 buf_window=big, prompt_ids=prompt_ids, into=into)
         else:
-            state = self._decoder().init_decode_state(
+            state = self.family.init_decode_state(
                 m.opt, cfg.opt, cond, max_new_tokens=cfg.generate_length, bucket=self.bucket,
                 generator=generator, attn=self.attn, sampling=sampling, prompt_ids=prompt_ids,
                 into=into)
@@ -510,7 +499,7 @@ class PhaseRunner:
                 if self.lookahead:
                     out = self._decode_lookahead(state, sampling, p_len)
                 else:
-                    state = self._decoder().decode_loop(
+                    state = decoding.decode_loop(
                         m.opt, cfg.opt, state, max_new_tokens=cfg.generate_length, wq=self.wq,
                         sampling=sampling, graph=self.graph, early_exit=self.early_exit,
                         wq_layers=self._wq())

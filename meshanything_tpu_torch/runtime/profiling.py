@@ -21,7 +21,7 @@ event is recorded while a graph capture is underway
 range onto the device's timeline, where it reads as a device operation.
 
 The spans the port records, from the entry down (``runtime/phases.py``,
-``models/shape_opt.py``, ``models/lookahead.py``, ``runtime/decode_graph.py``):
+``models/decoding.py``, ``models/lookahead.py``, ``runtime/decode_graph.py``):
 
 - ``request``: one ``PhaseRunner.run`` (attributes ``batch``,
   ``decode_steps``, ``graph_captures``, ``graph_replays``);

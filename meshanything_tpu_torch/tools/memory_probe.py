@@ -39,6 +39,7 @@ def phase_peaks(model, cfg, batch: int, attn: str, window: int = 0, wq: bool = F
     below a peak."""
     import torch
 
+    from meshanything_tpu_torch.models import decoding
     from meshanything_tpu_torch.models import lookahead as la
     from meshanything_tpu_torch.models import meshanything as ma
     from meshanything_tpu_torch.models import shape_opt as opt
@@ -78,8 +79,8 @@ def phase_peaks(model, cfg, batch: int, attn: str, window: int = 0, wq: bool = F
         phase_done("prefill")
         cache = torch.cuda.memory_allocated(device) - base
         wq_layers = quantize_opt_layers(model.opt.layers) if wq else None
-        state = opt.decode_loop(model.opt, cfg.opt, state, max_new_tokens=70, wq=wq,
-                                sampling=False, wq_layers=wq_layers)
+        state = decoding.decode_loop(model.opt, cfg.opt, state, max_new_tokens=70, wq=wq,
+                                     sampling=False, wq_layers=wq_layers)
         tokens = state.tokens.clone()
     phase_done("decode")
     torch.cuda.reset_peak_memory_stats(device)   # the decode's transients are gone
@@ -117,7 +118,7 @@ def main(argv=None) -> int:
     import torch
 
     from meshanything_tpu_torch.config import MeshAnythingConfig
-    from meshanything_tpu_torch.models.shape_opt import resolve_attn
+    from meshanything_tpu_torch.models.decoding import resolve_attn
     from meshanything_tpu_torch.runtime.checkpoint import init_random_params
     from meshanything_tpu_torch.tools.build_canary import canary, resolve_device
 

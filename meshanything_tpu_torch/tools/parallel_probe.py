@@ -158,6 +158,7 @@ def first_step_logits(model, cfg, pc):
     CPU: encode, prefill and one eager step of the exact tier."""
     import torch
 
+    from meshanything_tpu_torch.models import decoding
     from meshanything_tpu_torch.models import meshanything as ma
     from meshanything_tpu_torch.models import shape_opt as opt
 
@@ -165,7 +166,7 @@ def first_step_logits(model, cfg, pc):
         _, cond = ma.encode(model, cfg, pc)
         state = opt.init_decode_state(model.opt, cfg.opt, cond,
                                       max_new_tokens=cfg.generate_length, bucket=BUCKET)
-        first = opt.decode_step(model.opt, cfg.opt, state)
+        first = decoding.decode_step(model.opt, cfg.opt, state)
     return state.tokens[:, 0].cpu(), first.float().cpu()
 
 
@@ -218,6 +219,7 @@ def timed_decode(model, cfg, pc, *, graph: bool = False, clock=None,
     calls of ``clock`` inside the decode."""
     import torch
 
+    from meshanything_tpu_torch.models import decoding
     from meshanything_tpu_torch.models import meshanything as ma
     from meshanything_tpu_torch.models import shape_opt as opt
 
@@ -231,7 +233,7 @@ def timed_decode(model, cfg, pc, *, graph: bool = False, clock=None,
         _sync(device)
         reduce0, calls0 = (clock.seconds, clock.calls) if clock else (0.0, 0)
         t0 = time.perf_counter()
-        state = opt.decode_loop(model.opt, cfg.opt, state, max_new_tokens=end, graph=graph)
+        state = decoding.decode_loop(model.opt, cfg.opt, state, max_new_tokens=end, graph=graph)
         _sync(device)
         seconds = time.perf_counter() - t0
         coords = ma.detokenize(model, cfg, state.tokens, point_feature)
@@ -269,21 +271,15 @@ def tier_first_logits(opt_p, ocfg, cond, kw: dict, gen_len: int):
     decoder)."""
     import torch
 
+    from meshanything_tpu_torch.models import decoding
     from meshanything_tpu_torch.models import shape_opt as opt
-    from meshanything_tpu_torch.ops.megakernel import pack_megakernel_layers
     from meshanything_tpu_torch.ops.wquant import quantize_opt_layers
 
-    attn = kw.get("attn", "pallas")
     with torch.no_grad():
         state = opt.init_decode_state(opt_p, ocfg, cond, max_new_tokens=gen_len, bucket=BUCKET,
-                                      attn=attn)
-        step_kw = {}
-        if attn == "megakernel":
-            opt_p = state.decoder
-            step_kw["mega_layers"] = pack_megakernel_layers(opt_p.layers)
-        if kw.get("wq"):
-            step_kw["wq_layers"] = quantize_opt_layers(opt_p.layers)
-        return opt.decode_step(opt_p, ocfg, state, **step_kw).float().cpu()
+                                      attn=kw.get("attn", "pallas"))
+        wq_layers = quantize_opt_layers(opt_p.layers) if kw.get("wq") else None
+        return decoding.decode_step(opt_p, ocfg, state, wq_layers=wq_layers).float().cpu()
 
 
 def tier_decode(opt_p, ocfg, cond, kw: dict, gen_len: int, *, graph: bool = False,
@@ -297,6 +293,7 @@ def tier_decode(opt_p, ocfg, cond, kw: dict, gen_len: int, *, graph: bool = Fals
     calls that ``counter`` (``AllReduceClock(timed=False)``) saw in it."""
     import torch
 
+    from meshanything_tpu_torch.models import decoding
     from meshanything_tpu_torch.models import lookahead as la
     from meshanything_tpu_torch.models import shape_opt as opt
     from meshanything_tpu_torch.ops.decode_attention import decode_attention_mq
@@ -323,8 +320,8 @@ def tier_decode(opt_p, ocfg, cond, kw: dict, gen_len: int, *, graph: bool = Fals
             state = la.lookahead_segment(opt_p, ocfg, state, max_new_tokens=gen_len,
                                          wq_layers=wq_layers, graph=graph)
         else:
-            state = opt.decode_loop(opt_p, ocfg, state, max_new_tokens=gen_len, graph=graph,
-                                    wq_layers=wq_layers)
+            state = decoding.decode_loop(opt_p, ocfg, state, max_new_tokens=gen_len,
+                                         graph=graph, wq_layers=wq_layers)
         _sync(device)
         seconds = time.perf_counter() - t0
     tokens = state.tokens[:, :gen_len].cpu()

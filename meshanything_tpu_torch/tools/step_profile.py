@@ -96,9 +96,10 @@ def _state(torch, model, cfg, cond, attn: str, window: int, context: int):
     return state
 
 
-def _step_fn(torch, model, cfg, state, wq_layers, mega, window: int, graph: bool):
+def _step_fn(torch, model, cfg, state, wq_layers, window: int, graph: bool):
     """A callable running one step of ``state``: eagerly, or a replay of
     the step captured here (after its warm-up step)."""
+    from meshanything_tpu_torch.models import decoding
     from meshanything_tpu_torch.models import lookahead as la
     from meshanything_tpu_torch.models import shape_opt as opt
     from meshanything_tpu_torch.runtime.decode_graph import StepGraph
@@ -110,7 +111,7 @@ def _step_fn(torch, model, cfg, state, wq_layers, mega, window: int, graph: bool
         captured = body
     else:
         def body():
-            opt.decode_step(model.opt, cfg.opt, state, wq_layers=wq_layers, mega_layers=mega)
+            decoding.decode_step(model.opt, cfg.opt, state, wq_layers=wq_layers)
 
         def captured():
             opt.step_body(model.opt, cfg.opt, state, wq_layers=wq_layers)
@@ -124,7 +125,6 @@ def main(argv=None) -> int:
     import torch
 
     from meshanything_tpu_torch.config import MeshAnythingConfig
-    from meshanything_tpu_torch.ops.megakernel import pack_megakernel_layers
     from meshanything_tpu_torch.ops.wquant import quantize_opt_layers
     from meshanything_tpu_torch.runtime.checkpoint import init_random_params
 
@@ -140,7 +140,6 @@ def main(argv=None) -> int:
     cfg = MeshAnythingConfig()
     model = init_random_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                                cfg.activation_dtype)
-    mega = pack_megakernel_layers(model.opt.layers) if "megakernel" in names else None
     wq_layers = quantize_opt_layers(model.opt.layers) if "int4_wq" in names else None
     gen = torch.Generator(device="cuda").manual_seed(1)
     with torch.no_grad():
@@ -153,7 +152,7 @@ def main(argv=None) -> int:
                     for graph in ((False,) if attn == "megakernel" else (False, True)):
                         state = _state(torch, model, cfg, cond, attn, window, context)
                         step = _step_fn(torch, model, cfg, state, wq_layers if wq else None,
-                                        mega if attn == "megakernel" else None, window, graph)
+                                        window, graph)
                         out = profile_steps(torch, step, STEPS)
                         print(json.dumps({"tier": name, "attn": attn, "wq": wq,
                                           "window": window, "graph": graph, "batch": batch,

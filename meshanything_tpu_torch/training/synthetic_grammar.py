@@ -31,9 +31,9 @@ import torch
 
 from meshanything_tpu_torch.config import MeshAnythingConfig
 from meshanything_tpu_torch.geometry.sample import sample_surface_with_normals
+from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.models import meshanything as ma
 from meshanything_tpu_torch.models import perceiver as per_mod
-from meshanything_tpu_torch.models import shape_opt as sopt
 from meshanything_tpu_torch.models.lookahead import generate_lookahead
 from meshanything_tpu_torch.runtime.checkpoint import jax_numpy_from_params, params_from_jax_numpy
 
@@ -277,8 +277,8 @@ def measure_lookahead_acceptance(model, cfg: MeshAnythingConfig, pc: np.ndarray,
     pf = per_mod.encode_latents(model.perceiver, cfg.perceiver, pcj)
     cond = ma.process_point_feature(model, cfg, pf)
 
-    plain = sopt.generate(model.opt, cfg.opt, cond, max_new_tokens=cfg.generate_length,
-                          bucket=bucket, attn=attn).cpu().numpy()
+    plain = decoding.generate(model.opt, cfg.opt, cond, max_new_tokens=cfg.generate_length,
+                              bucket=bucket, attn=attn).cpu().numpy()
     look, stats = generate_lookahead(model.opt, cfg.opt, cond,
                                      max_new_tokens=cfg.generate_length, window=window,
                                      bucket=bucket, attn=attn, return_stats=True,
@@ -406,8 +406,8 @@ def full_scale_probe(steps: int = 600, batch: int = 4, n_max_triangles: int = 10
         cond = ma.process_point_feature(
             model, cfg, per_mod.encode_latents(model.perceiver, cfg.perceiver, pcj))
         gl = cfg.generate_length
-        t_plain = _timed(lambda: sopt.generate(model.opt, cfg.opt, cond, max_new_tokens=gl,
-                                               bucket=512, attn="pallas"))
+        t_plain = _timed(lambda: decoding.generate(model.opt, cfg.opt, cond, max_new_tokens=gl,
+                                                   bucket=512, attn="pallas"))
         t_look = _timed(lambda: generate_lookahead(model.opt, cfg.opt, cond, max_new_tokens=gl,
                                                    window=window, bucket=512, attn="pallas"))
     print(f"plain greedy: {t_plain:.3f}s", flush=True)

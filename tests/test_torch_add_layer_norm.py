@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from meshanything_tpu_torch.config import small_test_config
+from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.models import lookahead as la
 from meshanything_tpu_torch.models import shape_opt as opt
 from meshanything_tpu_torch.ops.add_layer_norm import add_layer_norm, add_layer_norm_reference
@@ -250,7 +251,7 @@ def test_capture_span_counts_the_launches_on_the_card(monkeypatch, path):
         if path == "step":
             state = opt.init_decode_state(p, cfg, cond, max_new_tokens=12, bucket=16)
             state.done.zero_()          # a live row: the segment captures its step
-            opt.decode_segment(p, cfg, state, max_new_tokens=12, until=state.step + 3)
+            decoding.decode_segment(p, cfg, state, max_new_tokens=12, until=state.step + 3)
         else:
             state = la.init_lookahead_state(p, cfg, cond, max_new_tokens=12, window=4,
                                             bucket=16)

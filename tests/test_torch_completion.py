@@ -22,6 +22,7 @@ from meshanything_tpu.config import small_test_config as jax_small_config
 from meshanything_tpu.models import meshanything as jma
 from meshanything_tpu.models import shape_opt as jsopt
 from meshanything_tpu_torch.config import small_test_config
+from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.models import lookahead as la
 from meshanything_tpu_torch.models import meshanything as ma
 from meshanything_tpu_torch.models import shape_opt as opt
@@ -123,7 +124,7 @@ def test_prompt_seeded_decode_equals_the_plain_stream(bridged, tier):
         with torch.no_grad():
             if window:
                 return la.generate_lookahead(model.opt, cfg.opt, cond, window=window, **kw)
-            return opt.generate(model.opt, cfg.opt, cond, **kw)
+            return decoding.generate(model.opt, cfg.opt, cond, **kw)
 
     plain = run().numpy()
     for p_len in (1, 7):
@@ -160,8 +161,8 @@ def test_prompt_seeded_state_starts_after_the_prompt(bridged):
     assert lst.steps.tolist() == [7, 7]
     np.testing.assert_array_equal(lst.tokens[:, :20].numpy(), st.tokens.numpy())
     with pytest.raises(ValueError, match="prompt length"):
-        opt.generate(model.opt, cfg.opt, torch.from_numpy(cond), max_new_tokens=4, bucket=BUCKET,
-                     prompt_ids=torch.zeros((2, 4), dtype=torch.int64))
+        decoding.generate(model.opt, cfg.opt, torch.from_numpy(cond), max_new_tokens=4,
+                          bucket=BUCKET, prompt_ids=torch.zeros((2, 4), dtype=torch.int64))
 
 
 def test_long_prompt_prefill_matches_jax():

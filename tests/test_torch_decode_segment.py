@@ -2,8 +2,9 @@
 and ``lookahead_segment`` against the JAX package's (Pallas kernels in
 interpret mode) over schedules of segment bounds, on the small config in
 f32 with weights bridged from the JAX package; the plain versions of K1-K3
-called with a device length; the kernels' live split plan; and, where a
-card is present, CUDA-graph replays against the eager loop."""
+called with a device length; the kernels' live split plan; the replay path
+of the segment for both decoder families, with a stand-in for the graph;
+and, where a card is present, CUDA-graph replays against the eager loop."""
 import functools
 
 import numpy as np
@@ -17,8 +18,10 @@ from meshanything_tpu.config import small_test_config as jax_small_config
 from meshanything_tpu.models import lookahead as jla
 from meshanything_tpu.models import meshanything as jma
 from meshanything_tpu.models import shape_opt as jsopt
-from meshanything_tpu_torch.config import small_test_config
+from meshanything_tpu_torch.config import small_moonlight_config, small_test_config
+from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.models import lookahead as la
+from meshanything_tpu_torch.models import moonlight as moon
 from meshanything_tpu_torch.models import shape_opt as opt
 from meshanything_tpu_torch.ops import kvcache as kvc
 from meshanything_tpu_torch.ops.decode_attention import (
@@ -33,7 +36,7 @@ from meshanything_tpu_torch.ops.decode_attention import (
     split_bounds,
     split_plan,
 )
-from meshanything_tpu_torch.runtime.checkpoint import params_from_jax_numpy
+from meshanything_tpu_torch.runtime.checkpoint import params_from_jax_numpy, randomize_
 
 BUCKET = 16
 # token 21's lm_head column copied into eos's: a row stops where it would
@@ -88,8 +91,8 @@ def test_decode_segment_matches_jax(bridged, early_exit):
         state = opt.init_decode_state(p, cfg.opt, torch.from_numpy(cond), max_new_tokens=gl,
                                       bucket=BUCKET)
         for until, (tokens, done, step) in zip(UNTIL, want):
-            state = opt.decode_segment(p, cfg.opt, state, max_new_tokens=gl, until=until,
-                                       early_exit=early_exit)
+            state = decoding.decode_segment(p, cfg.opt, state, max_new_tokens=gl, until=until,
+                                            early_exit=early_exit)
             np.testing.assert_array_equal(state.tokens.numpy(), tokens, err_msg=f"until={until}")
             np.testing.assert_array_equal(state.done.numpy(), done)
             assert state.step == int(state.step_t) == step, (until, state.step, step)
@@ -109,7 +112,7 @@ def test_decode_loop_steps_end_where_jax_ends(bridged, sync_every):
     with torch.no_grad():
         state = opt.init_decode_state(p, cfg.opt, torch.from_numpy(cond), max_new_tokens=gl,
                                       bucket=BUCKET)
-        state = opt.decode_loop(p, cfg.opt, state, max_new_tokens=gl, sync_every=sync_every)
+        state = decoding.decode_loop(p, cfg.opt, state, max_new_tokens=gl, sync_every=sync_every)
         np.testing.assert_array_equal(state.tokens.numpy(), want[0])
         assert state.step == want[2] == max(STOPS) + 1
         # steps past the end are no-ops on every state tensor
@@ -304,8 +307,8 @@ def test_graph_replays_give_the_eager_tokens_on_the_card(bridged, kw):
             else:
                 state = opt.init_decode_state(p, cfg.opt, c, max_new_tokens=gl, bucket=BUCKET,
                                               attn=kw.get("attn", "pallas"))
-                state = opt.decode_loop(p, cfg.opt, state, max_new_tokens=gl,
-                                        wq=kw.get("wq", False), graph=graph)
+                state = decoding.decode_loop(p, cfg.opt, state, max_new_tokens=gl,
+                                             wq=kw.get("wq", False), graph=graph)
                 streams[graph] = (state.tokens.cpu(), state.step)
             assert decode_graph.StepGraph.captures == captures + graph
     assert torch.equal(streams[True][0], streams[False][0])
@@ -344,20 +347,41 @@ def stand_in(monkeypatch):
     return _StandInGraph
 
 
-@pytest.mark.parametrize("sync_every", [5, 32])
-def test_replayed_segments_give_the_eager_tokens(bridged, stand_in, sync_every):
+def _moonlight_seeded():
+    """(cfg, a small Moonlight decoder on seeded f32 weights, a condition)."""
+    cfg = small_moonlight_config(n_max_triangles=4)
+    gen = torch.Generator().manual_seed(4)
+    p = randomize_(moon.MoonlightDecoder(cfg.opt, dtype=torch.float32), gen)
+    cond = torch.randn((2, cfg.opt.cond_length, cfg.opt.hidden_size), generator=gen)
+    return cfg, p, cond
+
+
+# (sync_every, decoder family); OPT's cases keep the ids they had before the family
+REPLAY_CASES = [pytest.param(5, "opt", id="5"), pytest.param(32, "opt", id="32"),
+                pytest.param(5, "moonlight", id="moonlight-5"),
+                pytest.param(32, "moonlight", id="moonlight-32")]
+
+
+@pytest.mark.parametrize("sync_every,decoder", REPLAY_CASES)
+def test_replayed_segments_give_the_eager_tokens(bridged, stand_in, sync_every, decoder):
     """One capture a request after one eager step; a segment replays its
     bound's count of steps; the replays past the last live step change
-    nothing; the step count is JAX's."""
-    _, _, cfg, p, cond = bridged
+    nothing; the step count is the eager loop's (JAX's). For each decoder
+    family through the one driver: OPT on the bridged weights, Moonlight
+    on seeded ones."""
+    if decoder == "opt":
+        _, _, cfg, p, cond = bridged
+        cond = torch.from_numpy(cond)
+    else:
+        cfg, p, cond = _moonlight_seeded()
     gl = cfg.generate_length
     runs = {}
     with torch.no_grad():
         for graph in (False, True):
-            state = opt.init_decode_state(p, cfg.opt, torch.from_numpy(cond), max_new_tokens=gl,
-                                          bucket=BUCKET)
-            runs[graph] = opt.decode_loop(p, cfg.opt, state, max_new_tokens=gl,
-                                          sync_every=sync_every, graph=graph)
+            state = decoding.family(cfg).init_decode_state(p, cfg.opt, cond, max_new_tokens=gl,
+                                                           bucket=BUCKET)
+            runs[graph] = decoding.decode_loop(p, cfg.opt, state, max_new_tokens=gl,
+                                               sync_every=sync_every, graph=graph)
     eager, replayed = runs[False], runs[True]
     assert torch.equal(replayed.tokens, eager.tokens) and replayed.step == eager.step
     assert stand_in.captures == 1 and replayed.graph.replayed == stand_in.replays

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from meshanything_tpu_torch.config import small_moonlight_config, small_test_config
-from meshanything_tpu_torch.models import layers
+from meshanything_tpu_torch.models import decoding, layers
 from meshanything_tpu_torch.models import lookahead as la
 from meshanything_tpu_torch.models import moonlight as moon
 from meshanything_tpu_torch.models import shape_opt as opt
@@ -324,7 +324,6 @@ def test_greedy_tokens_are_the_ones_before_the_entry(monkeypatch, decoder):
     kernel (fc1's ReLU after the product, lm_head and the codebook
     projection through ``lin``)."""
     cfg, p, cond = _opt_small() if decoder == "opt" else _moon_small()
-    module = opt if decoder == "opt" else moon
 
     def decode():
         with torch.no_grad():
@@ -332,7 +331,7 @@ def test_greedy_tokens_are_the_ones_before_the_entry(monkeypatch, decoder):
                 state = opt.init_decode_state(p, cfg, cond, max_new_tokens=10, bucket=16)
             else:
                 state = moon.init_decode_state(p, cfg, cond, max_new_tokens=10, into=None)
-            state = module.decode_loop(p, cfg, state, max_new_tokens=10, early_exit=False)
+            state = decoding.decode_loop(p, cfg, state, max_new_tokens=10, early_exit=False)
         return state.tokens.clone()
 
     spy = _spy(monkeypatch)
@@ -468,14 +467,13 @@ def test_capture_span_counts_the_launches_on_the_card(monkeypatch, decoder):
     monkeypatch.setattr(profiling, "RECORDER", rec)
     cfg, p, cond = _opt_small() if decoder == "opt" else _moon_small(card_latent=True)
     p, cond = p.to(dev), cond.to(dev)
-    module = opt if decoder == "opt" else moon
     with torch.no_grad():
         if decoder == "opt":
             state = opt.init_decode_state(p, cfg, cond, max_new_tokens=12, bucket=16)
         else:
             state = moon.init_decode_state(p, cfg, cond, max_new_tokens=12, into=None)
         state.done.zero_()          # a live row: the segment captures its step
-        module.decode_segment(p, cfg, state, max_new_tokens=12, until=state.step + 3)
+        decoding.decode_segment(p, cfg, state, max_new_tokens=12, until=state.step + 3)
     captures = [sp for sp in rec.spans() if sp.name == "capture"]
     assert [sp.attrs["gemv"] for sp in captures] == [step_products(decoder, cfg)]
 

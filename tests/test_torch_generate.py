@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from meshanything_tpu.config import small_test_config as jax_small_config
 from meshanything_tpu.models import meshanything as jma
 from meshanything_tpu_torch.config import small_test_config
+from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.models import meshanything as ma
 from meshanything_tpu_torch.models import shape_opt as opt
 from meshanything_tpu_torch.runtime.checkpoint import params_from_jax_numpy
@@ -90,8 +91,8 @@ def test_greedy_matches_jax_pallas(staggered, batch, sync_every):
         point_feature, cond = ma.encode(model, cfg, torch.from_numpy(_pc(batch)))
         state = opt.init_decode_state(model.opt, cfg.opt, cond,
                                       max_new_tokens=cfg.generate_length, bucket=BUCKET)
-        state = opt.decode_loop(model.opt, cfg.opt, state, max_new_tokens=cfg.generate_length,
-                                sync_every=sync_every)
+        state = decoding.decode_loop(model.opt, cfg.opt, state,
+                                     max_new_tokens=cfg.generate_length, sync_every=sync_every)
         coords = ma.detokenize(model, cfg, state.tokens, point_feature)
     np.testing.assert_array_equal(state.tokens.numpy(), jtokens)
     np.testing.assert_array_equal(coords.numpy(), jcoords)

@@ -16,6 +16,7 @@ from meshanything_tpu.models import shape_opt as jsopt
 from meshanything_tpu.models.lookahead import generate_lookahead as jax_generate_lookahead
 from meshanything_tpu.ops import wquant as jwq
 from meshanything_tpu_torch.config import small_test_config
+from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.models import lookahead as la
 from meshanything_tpu_torch.models import shape_opt as opt
 from meshanything_tpu_torch.ops import wquant as wq
@@ -50,8 +51,8 @@ def plain_streams(bridged):
     """The port's single-token greedy stream of each tier."""
     _, _, cfg, p, cond = bridged
     with torch.no_grad():
-        return {attn: opt.generate(p, cfg, torch.from_numpy(cond), max_new_tokens=MAX_NEW,
-                                   bucket=BUCKET, attn=attn).numpy() for attn in TIERS}
+        return {attn: decoding.generate(p, cfg, torch.from_numpy(cond), max_new_tokens=MAX_NEW,
+                                        bucket=BUCKET, attn=attn).numpy() for attn in TIERS}
 
 
 def assert_same_stream(got, want):
@@ -112,8 +113,8 @@ def test_wq_matches_jax(bridged):
     want = jsopt.generate(jparams, jcfg, jnp.asarray(cond), max_new_tokens=MAX_NEW, bucket=BUCKET,
                           attn="pallas", wq=True)
     with torch.no_grad():
-        got = opt.generate(p, cfg, torch.from_numpy(cond), max_new_tokens=MAX_NEW, bucket=BUCKET,
-                           attn="pallas", wq=True)
+        got = decoding.generate(p, cfg, torch.from_numpy(cond), max_new_tokens=MAX_NEW,
+                                bucket=BUCKET, attn="pallas", wq=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # the window forwards on the same int8 weights give the same stream
     assert_same_stream(_lookahead(bridged, 4, "pallas", wq=True), got)

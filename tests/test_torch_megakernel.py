@@ -20,6 +20,7 @@ from meshanything_tpu.ops.megakernel import decode_step_megakernel as jax_decode
 from meshanything_tpu.runtime.pipeline import InferencePipeline as JaxPipeline
 from meshanything_tpu.runtime.pipeline import load_inputs as jax_load_inputs
 from meshanything_tpu_torch.config import small_test_config
+from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.models import meshanything as ma
 from meshanything_tpu_torch.models import shape_opt as opt
 from meshanything_tpu_torch.ops.megakernel import (
@@ -135,7 +136,7 @@ def test_nan_past_cur_len_does_not_reach_the_output(bridged, dtype):
 
 
 def test_generate_megakernel_matches_jax_tokens(bridged, monkeypatch):
-    """(c) shape_opt.generate(attn="megakernel"), f32, B=2: greedy tokens
+    """(c) decoding.generate(attn="megakernel"), f32, B=2: greedy tokens
     identical to JAX's through each row's first eos, every step through
     the K5 wrapper."""
     jcfg, cfg, tree, model, _ = bridged
@@ -151,8 +152,8 @@ def test_generate_megakernel_matches_jax_tokens(bridged, monkeypatch):
                                      jnp.asarray(cond), max_new_tokens=n, bucket=16,
                                      attn="megakernel"))
     with torch.no_grad():
-        got = opt.generate(model.opt, cfg.opt, torch.from_numpy(cond), max_new_tokens=n,
-                           bucket=16, attn="megakernel").numpy()
+        got = decoding.generate(model.opt, cfg.opt, torch.from_numpy(cond), max_new_tokens=n,
+                                bucket=16, attn="megakernel").numpy()
     assert len(calls) > 0
     for row in range(2):
         eos = np.where(want[row] == cfg.opt.eos_token_id)[0]
@@ -199,8 +200,8 @@ def test_megakernel_refuses_wq_and_lookahead(bridged, case):
                            jnp.asarray(cond.numpy()), max_new_tokens=4, bucket=16,
                            attn="megakernel", wq=True)
         with pytest.raises(ValueError, match="wq"):
-            opt.generate(model.opt, cfg.opt, cond, max_new_tokens=4, bucket=16,
-                         attn="megakernel", wq=True)
+            decoding.generate(model.opt, cfg.opt, cond, max_new_tokens=4, bucket=16,
+                              attn="megakernel", wq=True)
     elif case == "pipeline_wq":
         with pytest.raises(ValueError, match="wq"):
             InferencePipeline(model, cfg, attn="megakernel", wq=True)

@@ -19,7 +19,7 @@ from meshanything_tpu.models import perceiver as jper
 from meshanything_tpu.models import shape_opt as jopt
 from meshanything_tpu.ops import sampling as jsampling
 from meshanything_tpu_torch.config import small_test_config
-from meshanything_tpu_torch.models import layers
+from meshanything_tpu_torch.models import decoding, layers
 from meshanything_tpu_torch.models import meshanything as ma
 from meshanything_tpu_torch.models import nrd
 from meshanything_tpu_torch.models import perceiver as per
@@ -116,7 +116,7 @@ def test_one_decode_step_matches_jax(setup):
                                       max_new_tokens=gl, bucket=bucket)
         np.testing.assert_array_equal(_np(state.tokens), np.asarray(jstate.tokens))
         _close(state.kv, jstate.kv)
-        logits = opt.decode_step(model.opt, cfg.opt, state)
+        logits = decoding.decode_step(model.opt, cfg.opt, state)
     assert state.step == int(jnext.step) == 2
     np.testing.assert_array_equal(_np(state.tokens), np.asarray(jnext.tokens))
     np.testing.assert_array_equal(_np(state.done), np.asarray(jnext.done))
@@ -130,11 +130,11 @@ def test_embedding_helpers_match_jax(setup):
     jcfg, cfg, params, model, pc = setup
     ids = np.array([[0, 1, 2, 3, 30, 66], [5, 2, 9, 1, 0, 44]], np.int64)
     with torch.no_grad():
-        emb = opt.embed_tokens(model.opt, cfg.opt, torch.from_numpy(ids))
+        emb = decoding.embed_tokens(model.opt, cfg.opt, torch.from_numpy(ids))
     _close(emb, jopt.embed_tokens(params["opt"], jcfg.opt, jnp.asarray(ids, jnp.int32)))
     for gen_index in (0, 1, 9, 10, 17):
         np.testing.assert_array_equal(
-            _np(opt.face_phase_ids(torch.from_numpy(ids), gen_index, 9)),
+            _np(decoding.face_phase_ids(torch.from_numpy(ids), gen_index, 9)),
             np.asarray(jopt.face_phase_ids(jnp.asarray(ids), gen_index, 9)))
 
 

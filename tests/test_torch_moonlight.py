@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from meshanything_tpu_torch.config import small_moonlight_config
+from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.models import meshanything as ma
 from meshanything_tpu_torch.models import moonlight as moon
 from meshanything_tpu_torch.ops.experts import routed_experts, routed_experts_reference
@@ -206,7 +207,7 @@ def test_the_runner_decodes_it_and_the_request_carries_the_expert_counter():
     counts = request.attrs["expert_tokens"]
     assert len(counts) == 2 and all(sum(c) == 2 * 2 * 37 for c in counts)
     _, cond = ma.encode(net, cfg, pc)
-    direct = moon.generate(net.opt, cfg.opt, cond, max_new_tokens=cfg.generate_length)
+    direct = decoding.generate(net.opt, cfg.opt, cond, max_new_tokens=cfg.generate_length)
     assert torch.equal(direct, first["tokens"])
     assert torch.equal(ma.generate(net, cfg, pc).token_ids, first["tokens"])
 
@@ -268,8 +269,6 @@ def test_what_the_decoder_does_not_have_raises():
         ma.forward_logits(net, cfg, _points(cfg), torch.zeros(1, 9, dtype=torch.int64))
     with pytest.raises(ValueError, match="tensor parallelism"):
         shard_params(Mesh(1, 2, 0, 0, None, None, CPU), net)
-    with pytest.raises(ValueError, match="megakernel"):
-        moon.step_body(net.opt, cfg.opt, None, mega_layers=object())
 
 
 def test_the_cache_budget_counts_the_latent_rows():

@@ -76,6 +76,7 @@ import json
 import os
 import torch
 from meshanything_tpu_torch.config import small_test_config
+from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.models import meshanything as ma
 from meshanything_tpu_torch.models import lookahead as la_mod
 from meshanything_tpu_torch.models import shape_opt as opt_mod
@@ -122,10 +123,10 @@ with torch.no_grad():
     res["runner_fast"] = runner(x["pc"]).token_ids
 
     try:
-        opt_mod.check_capture(local14.opt)
+        decoding.check_capture(local14.opt)
     except ValueError as e:
         res["graph_gloo"] = str(e)
-    opt_mod.check_capture(full.opt)        # no model group: captures
+    decoding.check_capture(full.opt)        # no model group: captures
 
     # the parts under the (1, 4) model group, each rank on its columns
     g14, me = m14.model_group, m14.model_index
@@ -155,7 +156,7 @@ with torch.no_grad():
         else:
             st = opt_mod.init_decode_state(local14.opt, cfg.opt, cond, max_new_tokens=gl,
                                            bucket=16, attn=attn)
-            st = opt_mod.decode_loop(local14.opt, cfg.opt, st, max_new_tokens=gl)
+            st = decoding.decode_loop(local14.opt, cfg.opt, st, max_new_tokens=gl)
         res["caches"][name] = st.kv
 
 opt = make_optimizer(1e-3, steps=20, clip_norm=0.05)

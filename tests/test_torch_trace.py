@@ -12,6 +12,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from meshanything_tpu_torch.config import small_test_config
+from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.models import shape_opt as opt
 from meshanything_tpu_torch.runtime import decode_graph, profiling
 from meshanything_tpu_torch.runtime.checkpoint import init_random_params
@@ -316,8 +317,8 @@ def test_the_replayed_segments_mark_the_capture(small, recorder, monkeypatch):
                        generator=torch.Generator().manual_seed(2))
     with torch.no_grad():
         state = opt.init_decode_state(model.opt, cfg.opt, cond, max_new_tokens=gl, bucket=16)
-        state = opt.decode_loop(model.opt, cfg.opt, state, max_new_tokens=gl, sync_every=20,
-                                early_exit=False)
+        state = decoding.decode_loop(model.opt, cfg.opt, state, max_new_tokens=gl,
+                                     sync_every=20, early_exit=False)
     segments = [sp for sp in recorder.spans() if sp.name == "segment"]
     assert [sp.attrs.get("captured", 0) for sp in segments] == [1] + [0] * (len(segments) - 1)
     assert sum(sp.attrs["steps"] for sp in segments) == state.step - 1 == gl - 1
