@@ -218,11 +218,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
      or one too many moves the output whole), held to 1% of each head's
      largest plain element; X1 (csrc/experts.cu) at B 1 and 3, 6 chosen
      and 2 shared slots of 64 experts of 1,408, held to 1e-3 of the row's
-     largest plain element, its counter and routing record exact. Then
-     ``PhaseRunner.run`` on Moonlight-16B-A3B whole (``MoonlightConfig()``,
-     seeded N(0, 0.02) weights, 30.6 GB) at 800 faces, every count set to
-     0 just before: L1 27 and X1 26 calls in each graph's warm-up step and
-     capture, no other kernel of the wrappers, and the replays covering
+     largest plain element, its counter and routing record exact; R1
+     (csrc/router.cu) at T 1, 3 and 16 rows of 64 experts of 2,048, its
+     ids equal to the plain version's wherever the 6th and 7th choices lie
+     over ROUTER_GAP apart and its weights within ROUTER_RTOL, then timed
+     over 208 gate weights (past L2) at T 1 and 16 beside the plain
+     version. Then ``PhaseRunner.run`` on Moonlight-16B-A3B whole
+     (``MoonlightConfig()``, seeded N(0, 0.02) weights, 30.6 GB) at 800
+     faces, every count set to 0 just before: L1 27, X1 26 and R1 26 calls
+     in each graph's warm-up step and capture, no other kernel of the
+     wrappers, and the replays covering
      the decode steps; the request's expert counter 6 a step in every MoE
      layer, the routing record equal to it.
 
@@ -264,7 +269,7 @@ WINDOW_RTOL = 1e-2
 QUANT_RTOL = 2e-2
 KERNEL_LIBS = ("decode_attention", "decode_attention_window", "decode_attention_quant",
                "decode_attention_fast", "megakernel", "k1_probe", "add_layer_norm",
-               "latent_attention", "experts", "gemv")
+               "latent_attention", "experts", "gemv", "router")
 # the residual add and post-LN kernel: rows of the exact tier's step at B 1 and 16, a
 # lookahead-8 window's at B=16, and a small 3-D input; timed over a step's 48 norm sites
 ADD_LN_SHAPES = ((1, 1024), (16, 1024), (16, 8, 1024), (2, 3, 64))
@@ -4019,6 +4024,13 @@ def diffusion_phase(torch, wrappers: dict, card: str) -> None:
 MOON_CUR_LENS = (258, 1000, 3860, 7459)   # the latent cache's live rows over a mesh's decode
 MOON_RTOL = 1e-2      # L1's bf16 output: one bf16 step of a head's largest element
 X1_RTOL = 1e-3        # X1's f32 output: f32 sums of 2,048 and 1,408 products in another order
+# R1's weights: a logit's f32 sum of 2,048 products in another order than cuBLAS's moves a
+# weight by a few 1e-7 of itself
+ROUTER_RTOL = 2e-6
+# R1's ids: equal to the plain version's, in order, wherever the 6th and 7th choices lie
+# further apart than this (a logit's rounding moves a choice by ~1e-7)
+ROUTER_GAP = 1e-4
+ROUTER_TIMED = 208    # gate weights a timed sweep cycles (208 x 256 KB, past the 50 MB L2)
 
 
 def _steer(cache, q, layer: int, row: int, scale: float) -> None:
@@ -4030,11 +4042,11 @@ def _steer(cache, q, layer: int, row: int, scale: float) -> None:
     cache[layer, :, row] = (direction * gain[:, None]).to(cache.dtype)
 
 
-def check_moonlight_kernels(torch, la, ex) -> dict:
-    """L1 and X1 against their plain versions at Moonlight's widths (phase
-    18) -> the worst error of each, as a share of its tolerance."""
+def check_moonlight_kernels(torch, la, ex, rt) -> dict:
+    """L1, X1 and R1 against their plain versions at Moonlight's widths
+    (phase 18) -> the worst error of each, as a share of its tolerance."""
     dev = torch.device("cuda")
-    worst = {"l1": 0.0, "x1": 0.0}
+    worst = {"l1": 0.0, "x1": 0.0, "r1": 0.0}
     failures = []
     heads, latent, rope, seq, layers = 16, 512, 64, 7680, 3
     scale = 192 ** -0.5
@@ -4090,9 +4102,58 @@ def check_moonlight_kernels(torch, la, ex) -> dict:
              recorded=recorded)
         if not (share <= 1.0 and counted and recorded):
             failures.append(("x1", batch, share, counted, recorded))
+    for rows in (1, 3, 16):
+        h, gate, bias = _router_inputs(torch, rows, n_exp, d, seed=20 + rows)
+        ids, weights = rt.route_topk(h, gate, bias, k, scale=2.446)
+        want_ids, want_w = rt.route_reference(h, gate, bias, k, scale=2.446)
+        torch.cuda.synchronize()
+        top = (torch.sigmoid(h.float() @ gate.float().T) + bias.float()).topk(k + 1).values
+        clear = (top[:, k - 1] - top[:, k]) > ROUTER_GAP
+        ids_ok = bool((ids == want_ids).all(dim=1)[clear].all())
+        err = ((weights - want_w).abs() / (ROUTER_RTOL * want_w.abs()))[clear]
+        share = (float(err.max()) if err.numel() else 0.0) if ids_ok else float("inf")
+        worst["r1"] = max(worst["r1"], share)
+        emit("moonlight_r1", rows=rows, clear_rows=int(clear.sum()), ids_equal=ids_ok,
+             err_over_tol=share)
+        if not share <= 1.0:
+            failures.append(("r1", rows, ids_ok, share))
     if failures:
         raise AssertionError(f"moonlight kernels: {failures}")
     return worst
+
+
+def _router_inputs(torch, rows: int, experts: int, d: int, seed: int):
+    """(h (rows, d), the gate's weight (E, d), its correction bias (E,)), bf16
+    on the card: h as an RMSNorm's output, the weight N(0, 0.02), the bias
+    N(0, 0.05) as the benchmark draws it."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
+    gate = (torch.randn(experts, d, generator=g, device="cuda") * 0.02).bfloat16()
+    bias = (torch.randn(experts, generator=g, device="cuda") * 0.05).bfloat16()
+    return h, gate, bias
+
+
+def time_router(torch, rt, card: str) -> dict:
+    """R1 at T 1 and 16, ms a call over ROUTER_TIMED gate weights (so each
+    is read from HBM, as in a step), as graph replays beside the plain
+    version (the step's eager router before R1) -> {rows: times}."""
+    n_exp, k, d = 64, 6, 2048
+    times = {}
+    mats = [_router_inputs(torch, 1, n_exp, d, seed=100 + i)[1:] for i in range(ROUTER_TIMED)]
+    for rows in (1, 16):
+        h = _router_inputs(torch, rows, n_exp, d, seed=99)[0]
+        sweeps = {"kernel": lambda: [rt.route_topk(h, w, b, k, scale=2.446) for w, b in mats],
+                  "plain": lambda: [rt.route_reference(h, w, b, k, scale=2.446)
+                                    for w, b in mats]}
+        t = _time_sweeps(torch, sweeps, ROUTER_TIMED)
+        moved = 2 * (n_exp * d + rows * d + n_exp) + rows * k * 12
+        t["bound_ms"], t["bound_by"] = bound(moved, 2 * rows * n_exp * d, "float32")
+        times[rows] = t
+        emit("moonlight_r1_time", rows=rows, matrices=ROUTER_TIMED, **t, bytes=moved,
+             share_of_bound=t["bound_ms"] / t["ms"], card=card)
+    del mats
+    torch.cuda.empty_cache()
+    return times
 
 
 def _moonlight_model(torch, cfg, seed: int = 0):
@@ -4127,11 +4188,13 @@ def moonlight_phase(torch, wrappers: dict, card: str) -> None:
     from meshanything_tpu_torch.config import MeshAnythingConfig, MoonlightConfig
     from meshanything_tpu_torch.ops import experts as ex
     from meshanything_tpu_torch.ops import latent_attention as la
+    from meshanything_tpu_torch.ops import router as rt
     from meshanything_tpu_torch.runtime import profiling
     from meshanything_tpu_torch.runtime.decode_graph import StepGraph
     from meshanything_tpu_torch.runtime.phases import PhaseRunner
 
-    worst = check_moonlight_kernels(torch, la, ex)
+    worst = check_moonlight_kernels(torch, la, ex, rt)
+    router_times = time_router(torch, rt, card)
     cfg = MeshAnythingConfig(opt=MoonlightConfig())
     o = cfg.opt
     net = _moonlight_model(torch, cfg)
@@ -4154,7 +4217,7 @@ def moonlight_phase(torch, wrappers: dict, card: str) -> None:
     # and lm_head (86 a step)
     gemv_a_step = 3 * o.num_layers + 3 * o.first_k_dense_replace + 2
     expected.update(l1=o.num_layers * wrapped, x1=o.num_moe_layers * wrapped,
-                    gemv=gemv_a_step * wrapped)
+                    r1=o.num_moe_layers * wrapped, gemv=gemv_a_step * wrapped)
     state = next(reversed(runner._kept.values())).state
     request = [sp for sp in profiling.spans() if sp.name == "request"][-1]
     counts = torch.tensor(request.attrs["expert_tokens"])
@@ -4166,9 +4229,10 @@ def moonlight_phase(torch, wrappers: dict, card: str) -> None:
     emit("moonlight", run="phase_runner_800", card=card, wall_s=wall, decode_s=out["decode_s"],
          decode_steps=steps, graph_captures=captures, graph_replays=replays, launches=launches,
          replayed_launches={"l1": o.num_layers * replays, "x1": o.num_moe_layers * replays,
-                            "gemv": gemv_a_step * replays},
+                            "r1": o.num_moe_layers * replays, "gemv": gemv_a_step * replays},
          expert_tokens_per_layer=counts.sum(dim=1).tolist()[:3],
          faces=int(out["coords"].shape[1]), worst=worst,
+         r1_ms={rows: t["ms"] for rows, t in router_times.items()},
          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     failures = []
     if launches != expected or not captures:
@@ -4238,6 +4302,7 @@ def main(argv=None) -> int:
     from meshanything_tpu_torch.ops import latent_attention as la
     from meshanything_tpu_torch.ops import megakernel as mk
     from meshanything_tpu_torch.ops import probes as pr
+    from meshanything_tpu_torch.ops import router as rt
     from meshanything_tpu_torch.tools.build_canary import canary
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4329,7 +4394,7 @@ def main(argv=None) -> int:
                 "k5": mk.decode_step_megakernel, "t1": pr.stream, "t2": pr.stream_rot,
                 "t3": pr.dual_stream, "t4": kp.k1_probe, "t5": pr.scale_shift,
                 "aln": aln.add_layer_norm, "l1": la.latent_attention, "x1": ex.routed_experts,
-                "gemv": gv.gemv}
+                "r1": rt.route_topk, "gemv": gv.gemv}
     if "measurement_path" in only:
         probe_launches = drive_measurement_path(torch, wrappers)
     tick("measurement_path")

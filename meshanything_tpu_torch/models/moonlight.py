@@ -37,9 +37,10 @@ hold a float32 reference to the same choices (``perfbench``'s moonlight
 family). The decode step (``step_body``) runs the absorbed attention: each
 head's no-rope query multiplied into the latent space by ``kv_b_proj``'s
 K half, the latent kernel over the cache (``ops/latent_attention.py``),
-its output mapped back by the V half; its routed experts (and the shared
-ones as two more slots) are the expert kernel (``ops/experts.py``), which
-reads the chosen ids on the device. The step reads every position from
+its output mapped back by the V half; its router is one launch
+(``ops/router.py``) and its routed experts (and the shared ones as two
+more slots) the expert kernel (``ops/experts.py``), which reads the
+chosen ids on the device. The step reads every position from
 ``state.step_t`` on the device, so ``decoding.decode_segment`` replays it
 as a CUDA graph on a card, as it does OPT's.
 
@@ -65,6 +66,7 @@ from meshanything_tpu_torch.models.layers import attention, lin
 from meshanything_tpu_torch.ops import experts as experts_op
 from meshanything_tpu_torch.ops import gemv as gemv_op
 from meshanything_tpu_torch.ops import latent_attention as latent_op
+from meshanything_tpu_torch.ops import router as router_op
 from meshanything_tpu_torch.ops.experts import routed_experts
 from meshanything_tpu_torch.ops.kvcache import padded_length
 from meshanything_tpu_torch.ops.latent_attention import latent_attention
@@ -72,18 +74,21 @@ from meshanything_tpu_torch.ops.wquant import QuantizedLinear, _quantize_linear,
 
 # the launch counts a decode graph's ``capture`` span records
 # (decode_graph.StepGraph): calls of the latent kernel (one a layer) and of
-# the expert kernel (one a mixture-of-experts layer), two launches each, and
-# the few-row product kernel's (q, latent and output projections, the dense
-# MLP, the codebook projection, lm_head)
+# the expert kernel (one a mixture-of-experts layer), two launches each, the
+# few-row product kernel's (q, latent and output projections, the dense
+# MLP, the codebook projection, lm_head) and the router kernel's (one a
+# mixture-of-experts layer)
 CAPTURE_COUNTERS = {"mla": lambda: latent_op.latent_attention.launches,
                     "moe": lambda: experts_op.routed_experts.launches,
-                    "gemv": lambda: gemv_op.gemv.launches}
-LIBRARIES = ("latent_attention", "experts")    # csrc/<name>.cu a decode launches
+                    "gemv": lambda: gemv_op.gemv.launches,
+                    "router": lambda: router_op.route_topk.launches}
+# csrc/<name>.cu a decode launches
+LIBRARIES = ("latent_attention", "experts", "router")
 
 
 def libraries(o: MoonlightConfig, attn: str, lookahead, dtype: torch.dtype) -> tuple:
-    """The kernel libraries a decode launches: L1 and X1, whatever the tier,
-    and in bf16 the few-row product kernel."""
+    """The kernel libraries a decode launches: L1, X1 and the router R1,
+    whatever the tier, and in bf16 the few-row product kernel."""
     return LIBRARIES + (("gemv",) if dtype == torch.bfloat16 else ())
 
 
@@ -283,14 +288,14 @@ def route(gate: Router, cfg: MoonlightConfig, h: torch.Tensor) -> tuple:
     """(ids (T, K) int64, weights (T, K) f32) of tokens h (T, d): the
     published gate (``noaux_tc`` over one group): f32 logits, sigmoid
     scores, the top K of score plus correction bias (in order of that sum),
-    weighted by the scores alone, normalised and scaled."""
-    scores = F.linear(h.float(), gate.weight.float()).sigmoid()
-    choice = scores + gate.e_score_correction_bias     # promoted to f32
-    ids = choice.topk(cfg.num_experts_per_tok, dim=-1).indices
-    weights = scores.gather(-1, ids)
-    if cfg.norm_topk_prob:
-        weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
-    return ids, weights * cfg.routed_scaling_factor
+    weighted by the scores alone, normalised and scaled. One launch of the
+    router kernel (``ops/router.py::route_topk``) where ``router_op.takes``
+    holds (the decode step's 1 to 16 bf16 rows), else the plain version
+    (``router_op.route_reference``: the prefill's rows, f32)."""
+    k, bias = cfg.num_experts_per_tok, gate.e_score_correction_bias
+    fn = router_op.route_topk if router_op.takes(h, gate.weight, bias, k) \
+        else router_op.route_reference
+    return fn(h, gate.weight, bias, k, norm=cfg.norm_topk_prob, scale=cfg.routed_scaling_factor)
 
 
 def moe_prefill(m: MoE, cfg: MoonlightConfig, h: torch.Tensor,

@@ -26,13 +26,14 @@ from meshanything_tpu_torch.config import small_moonlight_config
 from meshanything_tpu_torch.models import decoding
 from meshanything_tpu_torch.models import meshanything as ma
 from meshanything_tpu_torch.models import moonlight as moon
+from meshanything_tpu_torch.ops import router as router_op
 from meshanything_tpu_torch.ops.experts import routed_experts, routed_experts_reference
 from meshanything_tpu_torch.ops.latent_attention import (
     latent_attention,
     latent_attention_reference,
 )
 from meshanything_tpu_torch.parallel.mesh import Mesh, shard_params
-from meshanything_tpu_torch.runtime import profiling
+from meshanything_tpu_torch.runtime import decode_graph, profiling
 from meshanything_tpu_torch.runtime.phases import PhaseRunner, estimate_kv_bytes
 from perfbench import harness, weights
 from perfbench.reference import model as ref
@@ -294,3 +295,176 @@ def test_wq_runs_the_projections_and_dense_mlps_as_int8():
     shared = net.opt.layers[1].mlp.shared_experts
     assert layers[1].mlp.gate_proj.wq.shape == shared.gate_proj.weight.shape
     assert exact["tokens"].shape == quant["tokens"].shape
+
+
+# ---------------------------------------------------------------------------
+# the router (moonlight.route): the one-launch kernel (ops/router.py::
+# route_topk) where it takes the call, else the plain version
+# (route_reference), which was route()'s body before the kernel
+
+
+def _gate(cfg, dtype, seed=0):
+    """A router of the small config with seeded weights and a correction
+    bias of the benchmark's spread, N(0, 0.05)."""
+    g = torch.Generator().manual_seed(seed)
+    gate = moon.Router(cfg, dtype=dtype)
+    with torch.no_grad():
+        gate.weight.copy_(torch.randn(gate.weight.shape, generator=g) * 0.02)
+        gate.e_score_correction_bias.copy_(torch.randn(gate.weight.shape[0], generator=g) * 0.05)
+    return gate
+
+
+def _plain(gate, cfg, h):
+    """The router as the step ran it before the kernel: the plain version."""
+    return router_op.route_reference(h, gate.weight, gate.e_score_correction_bias,
+                                     cfg.num_experts_per_tok, norm=cfg.norm_topk_prob,
+                                     scale=cfg.routed_scaling_factor)
+
+
+def _spy_router(monkeypatch):
+    """Count ``route_topk``'s calls (each taken as a launch, as the card's
+    kernel counts them), computing what it computes on the CPU."""
+    real = router_op.route_topk
+
+    def spy(*args, **kw):
+        spy.launches += 1
+        return real(*args, **kw)
+
+    spy.launches = 0
+    monkeypatch.setattr(router_op, "route_topk", spy)
+    return spy
+
+
+@pytest.mark.parametrize("rows", [1, 5, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_the_router_on_the_cpu_is_the_plain_version_bit_for_bit(monkeypatch, rows, dtype):
+    """bf16 rows of 1 to 16 go to ``route_topk`` (on the CPU its plain
+    version), f32 rows to the plain version; either way the ids and weights
+    are the plain version's bit for bit."""
+    cfg = small_moonlight_config().opt
+    gate = _gate(cfg, dtype)
+    h = torch.randn(rows, cfg.hidden_size, generator=torch.Generator().manual_seed(rows))
+    h = h.to(dtype)
+    spy = _spy_router(monkeypatch)
+    with torch.no_grad():
+        ids, weights = moon.route(gate, cfg, h)
+        want_ids, want_w = _plain(gate, cfg, h)
+    assert spy.launches == (1 if dtype == torch.bfloat16 else 0)
+    assert ids.dtype == torch.int64 and weights.dtype == torch.float32
+    assert ids.shape == weights.shape == (rows, cfg.num_experts_per_tok)
+    assert torch.equal(ids, want_ids) and torch.equal(weights, want_w)
+
+
+@pytest.mark.parametrize("rows", [17, 40])
+def test_the_router_sends_more_than_16_rows_to_the_plain_version(monkeypatch, rows):
+    cfg = small_moonlight_config().opt
+    gate = _gate(cfg, torch.bfloat16, seed=1)
+    h = torch.randn(rows, cfg.hidden_size, generator=torch.Generator().manual_seed(2))
+    h = h.bfloat16()
+    spy = _spy_router(monkeypatch)
+    with torch.no_grad():
+        ids, weights = moon.route(gate, cfg, h)
+        want_ids, want_w = _plain(gate, cfg, h)
+    assert spy.launches == 0
+    assert torch.equal(ids, want_ids) and torch.equal(weights, want_w)
+
+
+def test_the_router_kernel_takes_what_its_launch_takes():
+    """``takes`` reads only the call: 1 to 16 bf16 rows, E at most 64, k at
+    most min(E, 32), d a multiple of 8, a contiguous weight, no grad."""
+    bf = torch.bfloat16
+    h, w, b = torch.zeros(16, 64, dtype=bf), torch.zeros(64, 64, dtype=bf), torch.zeros(64,
+                                                                                        dtype=bf)
+    assert router_op.takes(h, w, b, 6)
+    assert not router_op.takes(torch.zeros(17, 64, dtype=bf), w, b, 6)
+    assert not router_op.takes(h.float(), w, b, 6)
+    assert not router_op.takes(h, w, b.float(), 6)
+    assert not router_op.takes(h, torch.zeros(65, 64, dtype=bf), torch.zeros(65, dtype=bf), 6)
+    assert not router_op.takes(h, w, b, 33) and not router_op.takes(h, w[:4], b[:4], 6)
+    assert not router_op.takes(torch.zeros(1, 60, dtype=bf), torch.zeros(8, 60, dtype=bf),
+                               torch.zeros(8, dtype=bf), 2)
+    assert not router_op.takes(h, torch.zeros(64, 128, dtype=bf)[:, ::2], b, 6)
+    with torch.enable_grad():
+        assert not router_op.takes(h, w.clone().requires_grad_(), b, 6)
+    with torch.no_grad():
+        assert router_op.takes(h, w.clone().requires_grad_(), b, 6)
+
+
+def test_the_decode_counts_and_builds_the_router():
+    """The ``capture`` span's counter ``router`` reads R1's launches, and the
+    runner builds R1's library before any capture, in every dtype."""
+    assert set(moon.CAPTURE_COUNTERS) == {"mla", "moe", "gemv", "router"}
+    before = router_op.route_topk.launches
+    router_op.route_topk.launches = before + 3
+    try:
+        assert moon.CAPTURE_COUNTERS["router"]() == before + 3
+    finally:
+        router_op.route_topk.launches = before
+    o = small_moonlight_config().opt
+    for dtype in (torch.bfloat16, torch.float32):
+        assert "router" in moon.libraries(o, "pallas", 0, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_the_step_gives_the_tokens_of_the_eager_router(monkeypatch, dtype):
+    """A greedy decode through ``route`` gives the tokens and logits of the
+    same decode with every router call the plain version, as it ran before
+    the kernel; in bf16 every MoE layer of every step takes ``route_topk``
+    (and the prefill's rows never do)."""
+    model = _model()
+    cfg, net, _ = _built(model)
+    net = net.to(dtype)
+    cond = torch.randn(1, cfg.cond_length, cfg.opt.hidden_size,
+                       generator=torch.Generator().manual_seed(6)).to(dtype)
+    spy = _spy_router(monkeypatch)
+    _, tokens, logits = _decode(net, cfg, cond)
+    steps = cfg.generate_length - 1
+    assert spy.launches == (cfg.opt.num_moe_layers * steps if dtype == torch.bfloat16 else 0)
+    monkeypatch.setattr(moon, "route", _plain)
+    _, eager_tokens, eager_logits = _decode(net, cfg, cond)
+    assert spy.launches == (cfg.opt.num_moe_layers * steps if dtype == torch.bfloat16 else 0)
+    assert torch.equal(tokens, eager_tokens) and torch.equal(logits, eager_logits)
+
+
+class _NullStream:
+    def wait_stream(self, other):
+        pass
+
+
+class _Null:
+    def __init__(self, *args, **kw):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_the_capture_span_counts_one_router_launch_a_moe_layer(monkeypatch):
+    """``StepGraph`` records on its ``capture`` span how far R1's launch
+    count rose while it captured a bf16 step: one a MoE layer. The graph
+    calls are stood in for on the CPU; the counting and the step are the
+    real ones."""
+    model = _model()
+    cfg, net, _ = _built(model)
+    net = net.to(torch.bfloat16)
+    cond = torch.randn(1, cfg.cond_length, cfg.opt.hidden_size,
+                       generator=torch.Generator().manual_seed(7)).bfloat16()
+    with torch.no_grad():
+        state = moon.init_decode_state(net.opt, cfg.opt, cond, max_new_tokens=12, into=None)
+    rec = profiling.Recorder(enabled=True)
+    monkeypatch.setattr(profiling, "RECORDER", rec)
+    _spy_router(monkeypatch)
+    monkeypatch.setattr(decode_graph, "capture_stream", lambda device: _NullStream())
+    for name, value in (("current_stream", lambda device=None: _NullStream()),
+                        ("stream", lambda s: _Null()), ("CUDAGraph", _Null),
+                        ("graph", lambda g, stream=None: _Null()),
+                        ("synchronize", lambda device=None: None),
+                        ("memory_reserved", lambda device=None: 0)):
+        monkeypatch.setattr(torch.cuda, name, value)
+    decode_graph.StepGraph(lambda: moon.step_body(net.opt, cfg.opt, state, early_exit=False),
+                           CPU, counters=moon.CAPTURE_COUNTERS)
+    captures = [sp for sp in rec.spans() if sp.name == "capture"]
+    assert [sp.attrs["router"] for sp in captures] == [cfg.opt.num_moe_layers]

@@ -1,9 +1,11 @@
-"""The Moonlight decoder's two kernels on the card (``csrc/latent_attention.cu``,
-``csrc/experts.cu``) against their plain versions (``ops/latent_attention.py``,
-``ops/experts.py``): at the published widths, at an int and a device length,
-replayed from a CUDA graph bit-equal to the eager call, deterministic, and
-counting their calls and the experts' tokens. The kernels have no CPU mode,
-so every case skips without a card. Imports nothing of JAX."""
+"""The Moonlight decoder's three kernels on the card (``csrc/latent_attention.cu``,
+``csrc/experts.cu``, ``csrc/router.cu``) against their plain versions
+(``ops/latent_attention.py``, ``ops/experts.py``, ``ops/router.py``): at the
+published widths, at an int and a device length, replayed from a CUDA graph
+bit-equal to the eager call, deterministic, and counting their calls and the
+experts' tokens; the router's ties going to the lower expert. The kernels
+have no CPU mode, so every case skips without a card. Imports nothing of
+JAX."""
 import pytest
 import torch
 
@@ -12,9 +14,17 @@ from meshanything_tpu_torch.ops.latent_attention import (
     latent_attention,
     latent_attention_reference,
 )
+from meshanything_tpu_torch.ops.router import route_reference, route_topk
 
 H, LATENT, ROPE, S = 16, 512, 64, 7680
 E, K, D, WIDTH = 64, 6, 2048, 1408
+SCALE = 2.446                     # Moonlight's routed_scaling_factor
+# R1's weights against the plain version's: a logit's f32 sum of 2,048
+# products in another order than cuBLAS's moves a weight by a few 1e-7 of it
+ROUTER_RTOL = 2e-6
+# R1's ids equal the plain version's, in order, wherever the 6th and 7th
+# choices lie further apart than this (rounding moves a choice by ~1e-7)
+ROUTER_GAP = 1e-4
 
 
 def _card():
@@ -142,3 +152,83 @@ def test_expert_kernel_replays_other_routings_bit_equal():
             graph.replay()
             torch.cuda.synchronize(dev)
             assert torch.equal(out, call())
+
+
+def _router_inputs(rows, dev, seed=0, d=D, experts=E):
+    """h (rows, d) as an RMSNorm's output, the gate's weight (E, d) N(0,
+    0.02) and its correction bias (E,) N(0, 0.05), as the benchmark draws
+    them; bf16."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(rows, d, generator=g, device=dev).bfloat16()
+    gate = (torch.randn(experts, d, generator=g, device=dev) * 0.02).bfloat16()
+    bias = (torch.randn(experts, generator=g, device=dev) * 0.05).bfloat16()
+    return h, gate, bias
+
+
+# (rows, d, E, K, norm): Moonlight's router at 1, 3 and 16 rows; then a
+# width past one pass of a lane's loads (d 2560: two, the second partial)
+# with idle warps (40 experts) and no normalisation, and a narrower one
+ROUTER_CASES = [(1, D, E, K, True), (3, D, E, K, True), (16, D, E, K, True),
+                (3, 2560, 40, 4, False), (16, 1024, E, 8, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,experts,k,norm", ROUTER_CASES)
+def test_router_kernel_matches_plain(rows, d, experts, k, norm):
+    """The ids equal the plain version's, in order, on every row whose k-th
+    and next choices lie over ROUTER_GAP apart, and the weights lie within
+    ROUTER_RTOL of theirs there; one launch a call."""
+    dev = _card()
+    h, gate, bias = _router_inputs(rows, dev, seed=rows, d=d, experts=experts)
+    before = route_topk.launches
+    with torch.no_grad():
+        ids, weights = route_topk(h, gate, bias, k, norm=norm, scale=SCALE)
+        want_ids, want_w = route_reference(h, gate, bias, k, norm=norm, scale=SCALE)
+    torch.cuda.synchronize(dev)
+    assert route_topk.launches == before + 1
+    assert ids.dtype == torch.int64 and weights.dtype == torch.float32
+    top = (torch.sigmoid(h.float() @ gate.float().T) + bias.float()).topk(k + 1).values
+    clear = (top[:, k - 1] - top[:, k]) > ROUTER_GAP
+    assert bool(clear.any())
+    assert torch.equal(ids[clear], want_ids[clear])
+    err = (weights - want_w).abs()[clear] / want_w.abs()[clear]
+    assert float(err.max()) <= ROUTER_RTOL, float(err.max())
+
+
+@pytest.mark.cuda
+def test_router_kernel_breaks_ties_towards_the_lower_expert():
+    """Every expert's row and bias equal: every choice ties, so the ids are
+    0 .. K-1 in order and the weights all equal. Two experts whose rows and
+    biases are equal and lead the rest: the lower id comes first."""
+    dev = _card()
+    h, gate, bias = _router_inputs(2, dev, seed=5)
+    with torch.no_grad():
+        ids, weights = route_topk(h, gate[:1].expand(E, D).contiguous(),
+                                  torch.zeros_like(bias), K, scale=SCALE)
+        assert ids.tolist() == [list(range(K))] * 2
+        assert torch.equal(weights, weights[:, :1].expand(2, K))
+        pair = gate.clone()
+        pair[41] = pair[9]
+        lead = bias.clone()
+        lead[9] = lead[41] = 1.0                      # over any other choice
+        ids, _ = route_topk(h, pair, lead, K, scale=SCALE)
+    assert ids[:, :2].tolist() == [[9, 41]] * 2
+
+
+@pytest.mark.cuda
+def test_router_kernel_replays_other_rows_bit_equal():
+    dev = _card()
+    h, gate, bias = _router_inputs(16, dev, seed=7)
+
+    def call():
+        return route_topk(h, gate, bias, K, scale=SCALE)
+
+    with torch.no_grad():
+        _, graph, (ids, weights) = _graph(call, dev)
+        for seed in range(3):
+            g = torch.Generator(device=dev).manual_seed(200 + seed)
+            h.copy_(torch.randn(h.shape, generator=g, device=dev).bfloat16())
+            graph.replay()
+            torch.cuda.synchronize(dev)
+            want_ids, want_w = call()
+            assert torch.equal(ids, want_ids) and torch.equal(weights, want_w)
